@@ -1,0 +1,4 @@
+from goicp_tpu_torch.bnb.params import BnbParams, GoIcpResult
+from goicp_tpu_torch.bnb.solver import GoIcpSolver, make_solver, register
+
+__all__ = ["BnbParams", "GoIcpResult", "GoIcpSolver", "make_solver", "register"]
