@@ -9,18 +9,30 @@ Phases, each of which fails the run:
 
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. building the CUDA kernels from ``goicp_tpu_torch/csrc`` (timed);
-3. each kernel (K1 nearest neighbour, K2 screened bounds unscreened and
-   screened, K3 grouped distances) against its plain PyTorch version on the
-   card, on random inputs and on the bunny inputs at the solve's shapes,
-   with kernel, plain and (K1) library times;
-4. a certified solve of the in-repo bunny pair through ``register``, with
-   every kernel's launch count during the solve and the pose error against
-   the ground truth;
+3. each kernel against its plain PyTorch version on the card, on random
+   inputs and at the bunny solves' shapes, with kernel, plain, bound and
+   (K1, K3, K4) library times: K1 nearest neighbour; K3 grouped distances;
+   K2 screened bounds and K4 per-node distances at the largest R-round
+   bucket; K5 screened trimmed bounds there too; K6 screened trimmed
+   grouped bounds at se3_pop groups and once at Np ≥ 4,096 (its scratch in
+   global memory); K7 screened grouped bounds (no solver path calls K7);
+4. a certified solve of the in-repo bunny pair through ``register`` (K1,
+   K2, K3 must launch), with the pose error against the ground truth;
+4b. a trimmed (trim 0.25) certified solve of a partial-overlap bunny pair
+   (the target lacks the 20 % of points of largest x): K1, K4, K3 must
+   launch, and the pose must be within the same limits; then the same solve
+   with ``bound_backend="screen"`` on a 30 s budget: K1, K5, K6 must
+   launch;
 5. the same small solve on the card and on the CPU path, which must agree;
-6. with ``--profile`` only: the bunny solve once more under
-   ``torch.profiler`` (device activity), for the device's busy share of the
-   solve and its device time by kernel.
+5b. three small solves of 300-point subsets of the partial-overlap pair on
+   the card and on the CPU path: trimmed (K4), trimmed with
+   ``bound_backend="screen"`` (K5 and K6 must launch), untrimmed with
+   ``screen=False`` (K4);
+6. with ``--profile`` only: the bunny solve, and the trimmed solve with a
+   30 s budget, once more under ``torch.profiler`` (device activity), for
+   the device's busy share of each solve and its device time by kernel.
 
+Each solve's launch counts are reset just before it and read just after.
 The last lines are the ``kernels`` JSON line and the device JSON line.
 Details go to ``chiprun_out/chip_smoke.json``.  Without CUDA, or outside the
 repository, it exits non-zero and prints no result.
@@ -44,6 +56,9 @@ SMS, LANES = 132, 128           # H100 SXM: FP32 lanes per SM
 N_SRC, N_TGT = 1518, 1797       # the headline's subsample sizes
 SOLVE_WALL_S = 150.0            # BnB budget: keeps the run inside its limit
 MSE_FACTOR = 0.5                # mse_threshold = MSE_FACTOR · mse at the true pose
+TRIM = 0.25                     # trim_fraction of the partial-overlap solves
+SCREEN_WALL_S = 30.0            # BnB budget of the trimmed solve on the screen backend
+PROFILE_TRIM_WALL_S = 30.0      # BnB budget of the traced trimmed solve (--profile)
 
 
 def smi(query: str) -> str:
@@ -117,21 +132,32 @@ def report(key: str, rec: dict):
           f"bound {rec['bound_ms']:.4g} ms ({rec['bound_by']}) at {rec['shape']}", flush=True)
 
 
-def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop):
-    """Phase 3.  Returns the per-kernel records (without launch counts)."""
+def library_min_ms(Q, T, chunk: int = 1 << 19) -> float:
+    """One PyTorch call pair computing min over targets of |q − m|:
+    ``torch.cdist`` + ``amin`` over the queries ``Q [n, 3]``, in chunks of
+    ``chunk`` queries (a 2^19 x 1,797 distance block is 3.8 GB), timed as
+    one run over all chunks."""
+    import torch
+
+    chunks = [Q[i:i + chunk] for i in range(0, Q.shape[0], chunk)]
+    return timed_ms(lambda: [torch.cdist(c, T).amin(1) for c in chunks], 3)
+
+
+def _rec(name, source, replaces, err, ms, plain, b, by, lib, shape, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=lib, shape=shape, **extra)
+
+
+def check_k1(chk, dev, S, T, rng, clock_hz):
+    """K1 at the multistart refine shape: icp_cap (64) poses x N queries."""
     import torch
 
     from goicp_tpu_torch.geo.rotation import axis_angle_rotation
     from goicp_tpu_torch.nn import fused
     from goicp_tpu_torch.nn.brute import nearest_neighbor
 
-    rng = np.random.default_rng(7)
-    S = torch.as_tensor(src, device=dev)
-    T = torch.as_tensor(tgt, device=dev)
-    N, NT = S.shape[0], T.shape[0]
-    rec = {}
-
-    # -- K1 at the multistart refine shape: icp_cap (64) poses x N queries
+    NT = T.shape[0]
     R64 = axis_angle_rotation(torch.as_tensor(
         rng.uniform(-0.2, 0.2, (64, 3)).astype(np.float32), device=dev))
     Q = (S[None] @ R64.transpose(1, 2)).reshape(-1, 3).contiguous()
@@ -148,18 +174,22 @@ def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop):
     ms = timed_ms(lambda: fused.nearest_neighbor_mxu(Q, T), 20)
     plain = timed_ms(lambda: nearest_neighbor(Q, T), 5)
     lib = timed_ms(lambda: torch.cdist(Q, T).min(dim=1), 20)
-    pairs = Q.shape[0] * NT
-    b, by = bound_ms(4.0 * (3 * Q.shape[0] + 3 * NT + 2 * Q.shape[0]), 7.0 * pairs, clock_hz)
-    rec["K1"] = dict(name="K1 nearest_neighbor_mxu (exact NN + argmin)", route="cuda",
-                     source="goicp_tpu_torch/csrc/nn_min_d2.cu",
-                     replaces="goicp_tpu/nn/mxu.py:152", max_abs_err=err, ms=ms,
-                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-                     library_call="torch.cdist + min (two calls)",
-                     shape=f"{Q.shape[0]} queries x {NT} targets")
-    report("K1", rec["K1"])
+    b, by = bound_ms(4.0 * (3 * Q.shape[0] + 3 * NT + 2 * Q.shape[0]),
+                     7.0 * Q.shape[0] * NT, clock_hz)
+    return _rec("K1 nearest_neighbor_mxu (exact NN + argmin)", "goicp_tpu_torch/csrc/nn_min_d2.cu",
+                "goicp_tpu/nn/mxu.py:152", err, ms, plain, b, by, lib,
+                f"{Q.shape[0]} queries x {NT} targets",
+                library_call="torch.cdist + min (two calls)")
 
-    # -- K3 at the T-round shape: se3_pop groups of 8 siblings
-    G = se3_pop
+
+def check_k3(chk, dev, S, T, rng, clock_hz, G):
+    """K3 at the T-round shape: se3_pop groups of 8 siblings."""
+    import torch
+
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation
+    from goicp_tpu_torch.nn import fused
+
+    N, NT = S.shape[0], T.shape[0]
     Rg = axis_angle_rotation(torch.as_tensor(
         rng.uniform(-np.pi, np.pi, (G, 3)).astype(np.float32), device=dev))
     t8 = torch.as_tensor(rng.uniform(-0.3, 0.3, (G, 8, 3)).astype(np.float32), device=dev)
@@ -179,24 +209,44 @@ def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop):
         chk.expect(err == 0.0, f"K3 {name}: max |d2 err| {err:.3g} (tol 0: same rounding)")
     ms = timed_ms(lambda: fused.min_d2_groups(srcT, wm, gp), 10)
     plain = timed_ms(lambda: fused.min_d2_groups_plain(srcT, wm, gp), 2)
+    Q = ((S @ Rg.transpose(1, 2))[:, None] + t8[:, :, None]).reshape(-1, 3)   # [8G·N, 3]
+    lib = library_min_ms(Q, T)
+    del Q
     b, by = bound_ms(4.0 * (3 * N + 3 * NT + 48 * G + 8 * G * N), 22.0 * G * N * NT, clock_hz)
-    rec["K3"] = dict(name="K3 min_d2_groups (8-sibling grouped distances)", route="cuda",
-                     source="goicp_tpu_torch/csrc/min_d2_grouped.cu",
-                     replaces="goicp_tpu/nn/mxu.py:265", max_abs_err=err, ms=ms,
-                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-                     shape=f"{G} groups x {N} points x {NT} targets")
-    report("K3", rec["K3"])
+    return _rec("K3 min_d2_groups (8-sibling grouped distances)",
+                "goicp_tpu_torch/csrc/min_d2_grouped.cu", "goicp_tpu/nn/mxu.py:265",
+                err, ms, plain, b, by, lib, f"{G} groups x 8 x {N} points x {NT} targets",
+                library_call=f"torch.cdist + amin over the {8 * G * N} transformed queries, "
+                             "in chunks of 2^19")
 
-    # -- K2 at the largest R-round bucket (8·se3_pop nodes)
-    B = 8 * se3_pop
-    centers = rng.uniform(-np.pi, np.pi, (B, 3)).astype(np.float32)
-    Rb = axis_angle_rotation(torch.as_tensor(centers, device=dev))
+
+def node_batch(rng, B, dev):
+    """B random nodes at the R-round shape: poses, rotation deflation af
+    for cube spans π/8..π/32 and translation radii γt."""
+    import torch
+
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation
+
+    Rb = axis_angle_rotation(torch.as_tensor(
+        rng.uniform(-np.pi, np.pi, (B, 3)).astype(np.float32), device=dev))
     tb = torch.as_tensor(rng.uniform(-0.3, 0.3, (B, 3)).astype(np.float32), device=dev)
     span_r = np.pi / 2 ** rng.integers(3, 6, B)
     af = torch.as_tensor((2 * np.sin(np.minimum(np.sqrt(3) * span_r, np.pi) / 2)).astype(np.float32), device=dev)
     gt = torch.as_tensor((np.sqrt(3) * 0.5 / 2 ** rng.integers(2, 5, B)).astype(np.float32), device=dev)
-    norms = torch.linalg.vector_norm(S, dim=1)
-    srcX = fused.pack_sources_ext(S, norms)
+    return Rb, tb, af, gt
+
+
+def check_k2(chk, dev, S, T, rng, clock_hz, B):
+    """K2 at the largest R-round bucket (8·se3_pop nodes)."""
+    import torch
+
+    from goicp_tpu_torch.nn import fused
+    from goicp_tpu_torch.nn.agree import screened_agree
+
+    N, NT = S.shape[0], T.shape[0]
+    Rb, tb, af, gt = node_batch(rng, B, dev)
+    srcX = fused.pack_sources_ext(S, torch.linalg.vector_norm(S, dim=1))
+    wm = fused.pack_targets(T)
     p_open = fused.pack_params_bounds(Rb, tb, af, gt, 0.0, 1e30)
     _, lb_open = fused.bounds_nodes_plain(srcX, wm, p_open)
     thresh = float(lb_open.median())
@@ -216,18 +266,10 @@ def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop):
                         params[:37].contiguous())
             ub, lb = fused.bounds_nodes(*args)
             torch.cuda.synchronize()
-            ub_p, lb_p = fused.bounds_nodes_plain(*args)
-            differ = (lb >= th) != (lb_p >= th)
-            near = torch.abs(lb_p - th) <= 1e-5 * abs(th) + 1e-5
-            same = ~differ
-            rel = lambda a, r: float(((a - r).abs() - 1e-5 * r.abs()).max())  # noqa: E731
-            err = max(float((ub[same] - ub_p[same]).abs().max()),
-                      float((lb[same] - lb_p[same]).abs().max()))
-            ok = (bool(torch.all(near[differ]))
-                  and rel(ub[same], ub_p[same]) <= 1e-5 and rel(lb[same], lb_p[same]) <= 1e-5)
+            ok, err, _, differ = screened_agree(ub, lb, *fused.bounds_nodes_plain(*args), th, th)
             worst = max(worst, err)
             chk.expect(ok, f"K2 {label} {name}: max |err| {err:.3g} (tol 1e-5 + 1e-5·|ref|), "
-                           f"screened-set differences {int(differ.sum())} (all within tol of thresh)")
+                           f"screened-set differences {differ} (all within tol of thresh)")
         ms = timed_ms(lambda: fused.bounds_nodes(srcX, wm, params), 10)
         plain = timed_ms(lambda: fused.bounds_nodes_plain(srcX, wm, params), 2)
         ub_blk, lb_blk = fused.bounds_block_sums_plain(srcX, wm, params)
@@ -237,46 +279,337 @@ def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop):
         k2[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=worst,
                          blocks_run=int(blocks.sum().item()), blocks_total=B * (srcX.shape[1] // tq))
     s = k2["screened"]
-    rec["K2"] = dict(name="K2 bounds_nodes (screened fused bounds)", route="cuda",
-                     source="goicp_tpu_torch/csrc/bounds.cu",
-                     replaces="goicp_tpu/nn/mxu.py:479",
-                     max_abs_err=max(k2["screened"]["max_abs_err"], k2["unscreened"]["max_abs_err"]),
-                     ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-                     bound_by=s["bound_by"], library_ms=None,
-                     shape=f"{B} nodes x {N} points x {NT} targets, thresh = median lb "
-                           f"({s['blocks_run']} of {s['blocks_total']} blocks run)",
-                     unscreened=k2["unscreened"])
-    report("K2 screened", rec["K2"])
+    rec = _rec("K2 bounds_nodes (screened fused bounds)", "goicp_tpu_torch/csrc/bounds.cu",
+               "goicp_tpu/nn/mxu.py:479",
+               max(s["max_abs_err"], k2["unscreened"]["max_abs_err"]), s["ms"], s["plain_ms"],
+               s["bound_ms"], s["bound_by"], None,
+               f"{B} nodes x {N} points x {NT} targets, thresh = median lb "
+               f"({s['blocks_run']} of {s['blocks_total']} blocks run)",
+               library_none="no PyTorch call computes a screened, deflated sum",
+               unscreened=k2["unscreened"])
+    report("K2 screened", rec)
     report("K2 unscreened", dict(k2["unscreened"], library_ms=None,
                                  shape=f"{B} nodes x {N} points x {NT} targets"))
     return rec
 
 
-def solve_params(dev, src, tgt, R_gt, t_gt):
-    """The solve's parameters: ``mse_threshold`` below the mse at the true
-    pose, so the multistart ICP alone cannot end the solve."""
+def check_k4(chk, dev, S, T, rng, clock_hz, B):
+    """K4 at the largest R-round bucket: per-node distances, tol 0."""
     import torch
 
-    from goicp_tpu_torch import BnbParams
+    from goicp_tpu_torch.nn import fused
+
+    N, NT = S.shape[0], T.shape[0]
+    Rb, tb, _, _ = node_batch(rng, B, dev)
+    srcT, wm = fused.pack_sources(S), fused.pack_targets(T)
+    params = fused.pack_params(Rb, tb)
+    err = 0.0
+    for name, args in (
+        ("random 37 nodes 300x700", (fused.pack_sources(torch.rand(300, 3, device=dev) - 0.5),
+                                     fused.pack_targets(torch.rand(700, 3, device=dev) - 0.5),
+                                     params[:37].contiguous())),
+        (f"bunny {B} nodes {N}x{NT}", (srcT, wm, params)),
+    ):
+        got = fused.min_d2_nodes(*args)
+        torch.cuda.synchronize()
+        ref = fused.min_d2_nodes_plain(*args)
+        err = float((got - ref).abs().max())
+        chk.expect(bool(torch.equal(got, ref)),
+                   f"K4 {name}: max |d2 err| {err:.3g} (tol 0: same rounding, bit-equal)")
+    ms = timed_ms(lambda: fused.min_d2_nodes(srcT, wm, params), 10)
+    plain = timed_ms(lambda: fused.min_d2_nodes_plain(srcT, wm, params), 2)
+    Q = (S @ Rb.transpose(1, 2) + tb[:, None]).reshape(-1, 3)            # [B·N, 3]
+    lib = library_min_ms(Q, T)
+    del Q
+    b, by = bound_ms(4.0 * (16 * B + 3 * N + 3 * NT + B * srcT.shape[1]), 7.0 * B * N * NT, clock_hz)
+    return _rec("K4 min_d2_nodes (per-node distances, no index)", "goicp_tpu_torch/csrc/nn_min_d2.cu",
+                "goicp_tpu/nn/mxu.py:176 (via min_d2_nodes :361)", err, ms, plain, b, by, lib,
+                f"{B} nodes x {N} points x {NT} targets",
+                library_call=f"torch.cdist + amin over the {B * N} transformed queries, "
+                             "in chunks of 2^19")
+
+
+def bisect_ops(rows: int, Np: int) -> float:
+    """The bisection's work per survivor: 24 passes and one final pass over
+    ``rows`` x Np staged values, a compare and an add each."""
+    return 2.0 * 25 * rows * Np
+
+
+def check_k5(chk, dev, S, T, rng, clock_hz, B, h):
+    """K5 at the largest R-round bucket with the trimmed protocol's h."""
+    import torch
+
+    from goicp_tpu_torch.nn import fused
+    from goicp_tpu_torch.nn.agree import screened_agree, trim_levels
+
+    N, NT = S.shape[0], T.shape[0]
+    drop = N - h
+    Rb, tb, af, gt = node_batch(rng, B, dev)
+    srcX = fused.pack_sources_ext(S, torch.linalg.vector_norm(S, dim=1))
+    wm = fused.pack_targets(T)
+    Np = srcX.shape[1]
+    tq = fused._pick_tile(Np, fused.TQB)
+    p_open = fused.pack_params_bounds_trimmed(Rb, tb, af, gt, 0.0, 1e30, 1e30)
+    _, lb_open = fused.bounds_nodes_trimmed_plain(srcX, wm, p_open, h=h, drop=drop)
+    thresh, te, tau = trim_levels(lb_open, h, drop)
+    p_scr = fused.pack_params_bounds_trimmed(Rb, tb, af, gt, 0.0, te, tau)
+    out = {}
+    for label, params, th, sc in (("unscreened", p_open, 1e30, 1e30), ("screened", p_scr, thresh, te)):
+        worst = 0.0
+        for name, args, hh, dd in (
+            ("random 37 nodes 300x700", None, 225, 75),
+            (f"bunny {B} nodes {N}x{NT}", (srcX, wm, params), h, drop),
+        ):
+            if args is None:
+                s_r = torch.rand(300, 3, device=dev) - 0.5
+                args = (fused.pack_sources_ext(s_r, torch.linalg.vector_norm(s_r, dim=1)),
+                        fused.pack_targets(torch.rand(700, 3, device=dev) - 0.5),
+                        params[:37].contiguous())
+            ub, lb = fused.bounds_nodes_trimmed(*args, h=hh, drop=dd)
+            torch.cuda.synchronize()
+            ub_p, lb_p = fused.bounds_nodes_trimmed_plain(*args, h=hh, drop=dd)
+            ok, err, nscr, differ = screened_agree(ub, lb, ub_p, lb_p, th, sc)
+            worst = max(worst, err)
+            chk.expect(ok, f"K5 {label} {name}: max |err| {err:.3g} (tol 1e-5 + 1e-5·|ref|), "
+                           f"{nscr} screened, screened-set differences {differ} (all within tol)")
+        ms = timed_ms(lambda: fused.bounds_nodes_trimmed(srcX, wm, params, h=h, drop=drop), 10)
+        plain = timed_ms(lambda: fused.bounds_nodes_trimmed_plain(srcX, wm, params, h=h, drop=drop), 2)
+        ub_p, _, blocks = fused.bounds_nodes_trimmed_plain(srcX, wm, params, h=h, drop=drop,
+                                                           with_blocks=True)
+        survivors = int((ub_p < 1e29).sum().item())
+        pts = torch.clamp(blocks * tq, max=N).sum().item()
+        b, by = bound_ms(4.0 * (24 * B + 5 * N + 3 * NT + 2 * B),
+                         7.0 * pts * NT + survivors * bisect_ops(2, Np), clock_hz)
+        out[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=worst,
+                          blocks_run=int(blocks.sum().item()), blocks_total=B * (Np // tq),
+                          survivors=survivors)
+    s = out["screened"]
+    rec = _rec("K5 bounds_nodes_trimmed (screened trimmed bounds)",
+               "goicp_tpu_torch/csrc/bounds_trimmed.cu", "goicp_tpu/nn/mxu.py:738",
+               max(s["max_abs_err"], out["unscreened"]["max_abs_err"]), s["ms"], s["plain_ms"],
+               s["bound_ms"], s["bound_by"], None,
+               f"{B} nodes x {N} points x {NT} targets, h {h}, thresh = half the median positive "
+               f"lb ({s['blocks_run']} of {s['blocks_total']} blocks run, {s['survivors']} survivors)",
+               library_none="no PyTorch call computes a screened, trimmed sum",
+               unscreened=out["unscreened"])
+    report("K5 screened", rec)
+    report("K5 unscreened", dict(out["unscreened"], library_ms=None,
+                                 shape=f"{B} nodes x {N} points x {NT} targets"))
+    return rec
+
+
+def group_batch(rng, G, dev):
+    """G random 8-sibling groups at the T-round shape."""
+    import torch
+
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation
+
+    Rg = axis_angle_rotation(torch.as_tensor(
+        rng.uniform(-np.pi, np.pi, (G, 3)).astype(np.float32), device=dev))
+    t8 = torch.as_tensor(rng.uniform(-0.3, 0.3, (G, 8, 3)).astype(np.float32), device=dev)
+    span_r = np.pi / 2 ** rng.integers(3, 6, G)
+    af = torch.as_tensor((2 * np.sin(np.minimum(np.sqrt(3) * span_r, np.pi) / 2)).astype(np.float32), device=dev)
+    gt8 = torch.as_tensor((np.sqrt(3) * 0.5 / 2 ** rng.integers(2, 5, (G, 8))).astype(np.float32), device=dev)
+    return Rg, t8, af, gt8
+
+
+def check_k6(chk, dev, S, T, rng, clock_hz, G, h, S_big):
+    """K6 at se3_pop groups with the trimmed protocol's h, and once with a
+    source of Np ≥ 4,096 points, whose [16, Np] scratch is staged in global
+    memory."""
+    import torch
+
+    from goicp_tpu_torch.nn import fused, kernels
+    from goicp_tpu_torch.nn.agree import screened_agree, trim_levels
+
+    NT = T.shape[0]
+    wm = fused.pack_targets(T)
+    out = {}
+    for route, src, g in (("shared", S, G), ("global", S_big, 263)):
+        N = src.shape[0]
+        hh = h if route == "shared" else int(round(0.75 * N))
+        drop = N - hh
+        srcX = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+        Np = srcX.shape[1]
+        tq = fused._pick_tile(Np, fused.TQB)
+        in_smem = bool(kernels.lib().goicp_bounds_groups_trimmed_smem(Np))
+        chk.expect(in_smem == (route == "shared"),
+                   f"K6 Np {Np}: scratch in {'shared' if in_smem else 'global'} memory "
+                   f"(expected {route})")
+        Rg, t8, af, gt8 = group_batch(rng, g, dev)
+        p_open = fused.pack_group_params_bounds_trimmed(Rg, t8, af, gt8, 0.0, 1e30, 1e30)
+        _, lb_open = fused.bounds_groups_trimmed_plain(srcX, wm, p_open, h=hh, drop=drop)
+        thresh, te, tau = trim_levels(lb_open, hh, drop)
+        p_scr = fused.pack_group_params_bounds_trimmed(Rg, t8, af, gt8, 0.0, te, tau)
+        for label, params, th, sc in (("unscreened", p_open, 1e30, 1e30),
+                                      ("screened", p_scr, thresh, te)):
+            ub, lb = fused.bounds_groups_trimmed(srcX, wm, params, h=hh, drop=drop)
+            torch.cuda.synchronize()
+            ub_p, lb_p, blocks = fused.bounds_groups_trimmed_plain(srcX, wm, params, h=hh, drop=drop,
+                                                                   with_blocks=True)
+            ok, err, nscr, differ = screened_agree(ub, lb, ub_p, lb_p, th, sc, group=8)
+            chk.expect(ok, f"K6 {label} {g} groups {N}x{NT} ({route} scratch): max |err| "
+                           f"{err:.3g} (tol 1e-5 + 1e-5·|ref|), {nscr} groups screened, "
+                           f"screened-set differences {differ} (all within tol)")
+            ms = timed_ms(lambda: fused.bounds_groups_trimmed(srcX, wm, params, h=hh, drop=drop), 5)
+            plain = timed_ms(lambda: fused.bounds_groups_trimmed_plain(srcX, wm, params, h=hh, drop=drop), 2)
+            survivors = int((ub_p < 1e29).sum().item()) // 8
+            pts = torch.clamp(blocks * tq, max=N).sum().item()
+            b, by = bound_ms(4.0 * (64 * g + 5 * N + 3 * NT + 16 * g),
+                             22.0 * pts * NT + survivors * bisect_ops(16, Np), clock_hz)
+            out[f"{route} {label}"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=err,
+                blocks_run=int(blocks.sum().item()), blocks_total=g * (Np // tq),
+                survivors=survivors, shape=f"{g} groups x 8 x {N} points x {NT} targets, h {hh}")
+    s = out["shared screened"]
+    rec = _rec("K6 bounds_groups_trimmed (screened trimmed grouped bounds)",
+               "goicp_tpu_torch/csrc/bounds_trimmed_grouped.cu", "goicp_tpu/nn/mxu.py:918",
+               max(v["max_abs_err"] for v in out.values()), s["ms"], s["plain_ms"],
+               s["bound_ms"], s["bound_by"], None,
+               s["shape"] + f", thresh = half the median positive lb ({s['blocks_run']} of "
+               f"{s['blocks_total']} blocks run, {s['survivors']} surviving groups)",
+               library_none="no PyTorch call computes a screened, trimmed sum",
+               variants={k: v for k, v in out.items() if k != "shared screened"})
+    for k, v in out.items():
+        report(f"K6 {k}", dict(v, library_ms=None))
+    return rec
+
+
+def check_k7(chk, dev, S, T, rng, clock_hz, G):
+    """K7 at se3_pop groups, unscreened and screened at the median of the
+    groups' smallest lb."""
+    import torch
+
+    from goicp_tpu_torch.nn import fused
+    from goicp_tpu_torch.nn.agree import screened_agree
+
+    N, NT = S.shape[0], T.shape[0]
+    srcX = fused.pack_sources_ext(S, torch.linalg.vector_norm(S, dim=1))
+    wm = fused.pack_targets(T)
+    Np = srcX.shape[1]
+    tq = fused._pick_tile(Np, fused.TQB)
+    Rg, t8, af, gt8 = group_batch(rng, G, dev)
+    p_open = fused.pack_group_params_bounds(Rg, t8, af, gt8, 0.0, 1e30)
+    _, lb_open = fused.bounds_groups_plain(srcX, wm, p_open)
+    thresh = float(lb_open.reshape(G, 8).amin(1).median())
+    p_scr = fused.pack_group_params_bounds(Rg, t8, af, gt8, 0.0, thresh)
+    out = {}
+    for label, params, th in (("unscreened", p_open, 1e30), ("screened", p_scr, thresh)):
+        ub, lb = fused.bounds_groups(srcX, wm, params)
+        torch.cuda.synchronize()
+        ub_p, lb_p, blocks = fused.bounds_groups_plain(srcX, wm, params, with_blocks=True)
+        ok, err, nscr, differ = screened_agree(ub, lb, ub_p, lb_p, th, th, group=8)
+        chk.expect(ok, f"K7 {label} {G} groups {N}x{NT}: max |err| {err:.3g} (tol 1e-5 + "
+                       f"1e-5·|ref|), {nscr} groups screened, screened-set differences {differ}")
+        ms = timed_ms(lambda: fused.bounds_groups(srcX, wm, params), 5)
+        plain = timed_ms(lambda: fused.bounds_groups_plain(srcX, wm, params), 2)
+        pts = torch.clamp(blocks * tq, max=N).sum().item()
+        b, by = bound_ms(4.0 * (64 * G + 5 * N + 3 * NT + 16 * G), 22.0 * pts * NT, clock_hz)
+        out[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=err,
+                          blocks_run=int(blocks.sum().item()), blocks_total=G * (Np // tq))
+    s = out["screened"]
+    rec = _rec("K7 bounds_groups (screened grouped bounds)", "goicp_tpu_torch/csrc/bounds_grouped.cu",
+               "goicp_tpu/nn/mxu.py:597",
+               max(s["max_abs_err"], out["unscreened"]["max_abs_err"]), s["ms"], s["plain_ms"],
+               s["bound_ms"], s["bound_by"], None,
+               f"{G} groups x 8 x {N} points x {NT} targets, thresh = median smallest lb "
+               f"({s['blocks_run']} of {s['blocks_total']} blocks run)",
+               library_none="no PyTorch call computes a screened, deflated sum",
+               unscreened=out["unscreened"])
+    report("K7 screened", rec)
+    report("K7 unscreened", dict(out["unscreened"], library_ms=None,
+                                 shape=f"{G} groups x 8 x {N} points x {NT} targets"))
+    return rec
+
+
+def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop, h_trim, big_src):
+    """Phase 3: every kernel against its plain version, with its times.
+    Returns the per-kernel records (without launch counts)."""
+    import torch
+
+    from goicp_tpu_torch.nn import fused
+
+    rng = np.random.default_rng(7)
+    S = torch.as_tensor(src, device=dev)
+    T = torch.as_tensor(tgt, device=dev)
+    rec = {"K1": check_k1(chk, dev, S, T, rng, clock_hz)}
+    report("K1", rec["K1"])
+    rec["K3"] = check_k3(chk, dev, S, T, rng, clock_hz, se3_pop)
+    report("K3", rec["K3"])
+    rec["K2"] = check_k2(chk, dev, S, T, rng, clock_hz, 8 * se3_pop)
+    rec["K4"] = check_k4(chk, dev, S, T, rng, clock_hz, 8 * se3_pop)
+    report("K4", rec["K4"])
+    rec["K5"] = check_k5(chk, dev, S, T, rng, clock_hz, 8 * se3_pop, h_trim)
+    rec["K6"] = check_k6(chk, dev, S, T, rng, clock_hz, se3_pop, h_trim,
+                         torch.as_tensor(big_src, device=dev))
+    fused.reset_launch_counts()
+    rec["K7"] = check_k7(chk, dev, S, T, rng, clock_hz, se3_pop)
+    rec["K7"]["check_launches"] = fused.launches["bounds_groups"]
+    return rec
+
+
+def load_bunny_partial():
+    """The trimmed (partial-overlap) bunny pair: the target drops the 20 %
+    of rotated_bunny.ply's points with the largest x before its seed-2
+    subsample; the source is Rᵀ(full target − t), subsampled with seed 1,
+    so about a fifth of it has no counterpart.  Both are scaled by one
+    factor into [−1, 1]³."""
+    from goicp_tpu_torch.io import read_ply
+
+    tgt_full = read_ply(os.path.join(HERE, "data_generated", "rotated_bunny.ply"))
+    with open(os.path.join(HERE, "data_generated", "rotated_bunny_gt.toml"), "rb") as f:
+        gt = tomllib.load(f)
+    R = np.asarray(gt["rotation"], np.float64)
+    t = np.asarray(gt["translation"], np.float64)
+    n = tgt_full.shape[0]
+    src_full = (tgt_full.astype(np.float64) - t) @ R
+    part = tgt_full[np.sort(np.argsort(tgt_full[:, 0], kind="stable")[: n - n // 5])]
+    src = src_full[np.sort(np.random.default_rng(1).choice(n, N_SRC, replace=False))]
+    tgt = part[np.sort(np.random.default_rng(2).choice(part.shape[0], N_TGT, replace=False))]
+    scale = 1.0 / max(np.abs(src).max(), np.abs(tgt).max())
+    return (
+        (src * scale).astype(np.float32), (tgt * scale).astype(np.float32),
+        R.astype(np.float32), (t * scale).astype(np.float32),
+    )
+
+
+def mse_at_truth(dev, src, tgt, R_gt, t_gt, trim: float = 0.0) -> float:
+    """(Trimmed) mse of the source at the true pose: the mean of the
+    h = round(N·(1 − trim)) smallest squared nearest distances."""
+    import torch
+
     from goicp_tpu_torch.nn.brute import nearest_neighbor
 
     S, T = torch.as_tensor(src, device=dev), torch.as_tensor(tgt, device=dev)
     d2, _ = nearest_neighbor(S @ torch.as_tensor(R_gt, device=dev).T
                              + torch.as_tensor(t_gt, device=dev), T)
-    mse_true = float(d2.mean())
-    return BnbParams(mse_threshold=MSE_FACTOR * mse_true, max_wall_s=SOLVE_WALL_S), mse_true
+    h = max(1, int(round(src.shape[0] * (1.0 - trim))))
+    return float(torch.sort(d2).values[:h].mean())
 
 
-def solve_bunny(chk, dev, src, tgt, R_gt, t_gt):
-    """Phase 4: the certified solve through the public entry point."""
+def solve_params(dev, src, tgt, R_gt, t_gt, trim: float = 0.0, **kw):
+    """The solve's parameters: ``mse_threshold`` below the (trimmed) mse at
+    the true pose, so the multistart ICP alone cannot end the solve."""
+    from goicp_tpu_torch import BnbParams
+
+    mse_true = mse_at_truth(dev, src, tgt, R_gt, t_gt, trim)
+    p = dict(mse_threshold=MSE_FACTOR * mse_true, max_wall_s=SOLVE_WALL_S, trim_fraction=trim)
+    return BnbParams(**{**p, **kw}), mse_true
+
+
+def solve_bunny(chk, dev, label, src, tgt, R_gt, t_gt, expect, trim: float = 0.0, **kw):
+    """Phases 4 and 4b: a certified solve through the public entry point,
+    with the launch counts of exactly this solve; every kernel in
+    ``expect`` must have launched.  ``kw`` overrides ``BnbParams``."""
     import torch
 
     from goicp_tpu_torch import register
     from goicp_tpu_torch.nn import fused
 
-    params, mse_true = solve_params(dev, src, tgt, R_gt, t_gt)
-    print(f"solve: {src.shape[0]} source / {tgt.shape[0]} target points, mse at the "
-          f"true pose {mse_true:.6g}, mse_threshold {params.mse_threshold:.6g}", flush=True)
+    params, mse_true = solve_params(dev, src, tgt, R_gt, t_gt, trim, **kw)
+    print(f"{label}: {src.shape[0]} source / {tgt.shape[0]} target points, trim {trim}, "
+          f"mse at the true pose {mse_true:.6g}, mse_threshold {params.mse_threshold:.6g}",
+          flush=True)
     torch.cuda.synchronize()
     fused.reset_launch_counts()
     t0 = time.perf_counter()
@@ -291,30 +624,57 @@ def solve_bunny(chk, dev, src, tgt, R_gt, t_gt):
     t_err = float(np.linalg.norm(t - t_gt))
     timers = dict(res.metrics.timers)
     info = dict(
-        rounds=res.rounds, nodes=res.rot_nodes, nodes_per_s=res.rot_nodes / max(timers.get("bnb", 0.0), 1e-9),
+        trim_fraction=trim, bound_backend=params.bound_backend, max_wall_s=params.max_wall_s,
+        rounds=res.rounds, nodes=res.rot_nodes,
+        nodes_per_s=res.rot_nodes / max(timers.get("bnb", 0.0), 1e-9),
         converged=bool(res.converged), gap=res.gap, sse=res.sse, mse=res.mse,
         mse_true=mse_true, mse_threshold=params.mse_threshold, wall_s=wall,
         rot_err_deg=rot_err, t_err=t_err, t_err_over_extent=t_err / extent,
         icp_iters=res.icp_iters, launches=launches, timers=timers,
         counters={k: float(v) for k, v in res.metrics.counters.items()},
     )
-    print("solve: " + json.dumps({k: info[k] for k in (
+    print(f"{label}: " + json.dumps({k: info[k] for k in (
         "rounds", "nodes", "nodes_per_s", "converged", "gap", "mse", "wall_s",
         "rot_err_deg", "t_err", "t_err_over_extent", "launches")}), flush=True)
-    for k, v in launches.items():
-        chk.expect(v > 0, f"solve launched {k} {v} times")
-    chk.expect(res.rot_nodes > 0, f"solve evaluated {res.rot_nodes} nodes")
+    for k in expect:
+        chk.expect(launches[k] > 0, f"{label} launched {k} {launches[k]} times")
+    chk.expect(res.rot_nodes > 0, f"{label} evaluated {res.rot_nodes} nodes")
     chk.expect(rot_err < 0.5 and t_err < 0.01 * extent,
-               f"pose: rotation error {rot_err:.4f} deg (< 0.5), translation error "
+               f"{label} pose: rotation error {rot_err:.4f} deg (< 0.5), translation error "
                f"{t_err:.3g} = {100 * t_err / extent:.3f}% of the extent (< 1%)")
-    chk.expect(bool(np.isfinite(res.sse)) and R.shape == (3, 3), "result finite, R 3x3")
+    chk.expect(bool(np.isfinite(res.sse)) and R.shape == (3, 3), f"{label} result finite, R 3x3")
     return info
+
+
+def card_vs_cpu(chk, dev, label, src, tgt, params, expect=()):
+    """One small solve on the card and on the CPU path, which must agree on
+    the pose (1e-4), the sse (rtol 1e-5) and the rounds; ``expect`` lists
+    kernels that must have launched in the card's solve."""
+    import torch
+
+    from goicp_tpu_torch import register
+    from goicp_tpu_torch.nn import fused
+
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    rg = register(src, tgt, params, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(fused.launches)
+    rc = register(src, tgt, params, device="cpu")
+    dR = float(np.abs(rg.transform.R - rc.transform.R).max())
+    ok = dR < 1e-4 and abs(rg.sse - rc.sse) <= 1e-5 * abs(rc.sse) and rg.rounds == rc.rounds
+    chk.expect(ok, f"{label} card vs CPU: |dR| {dR:.3g}, sse {rg.sse:.7g} vs {rc.sse:.7g}, "
+                   f"rounds {rg.rounds} vs {rc.rounds}, nodes {rg.rot_nodes} vs {rc.rot_nodes}")
+    for k in expect:
+        chk.expect(launches[k] > 0, f"{label} launched {k} {launches[k]} times")
+    return dict(nodes_gpu=rg.rot_nodes, nodes_cpu=rc.rot_nodes, rounds=rg.rounds, dR=dR,
+                sse_gpu=rg.sse, sse_cpu=rc.sse, converged=bool(rg.converged), launches=launches)
 
 
 def small_agreement(chk, dev):
     """Phase 5: the 100-point parity protocol of tests/test_torch_bnb.py on
     the card and on the CPU path."""
-    from goicp_tpu_torch import BnbParams, register
+    from goicp_tpu_torch import BnbParams
     from goicp_tpu_torch.geo.rotation import random_rotations
 
     rng = np.random.default_rng(11)
@@ -324,29 +684,45 @@ def small_agreement(chk, dev):
            + rng.normal(0, 0.01, (100, 3))).astype(np.float32)
     p = BnbParams(mse_threshold=1e-4, se3_pop=64, init_multistart=8,
                   refine_top_k=2, max_rounds=30)
-    rg = register(src, tgt, p, device=dev)
-    rc = register(src, tgt, p, device="cpu")
-    dR = float(np.abs(rg.transform.R - rc.transform.R).max())
-    ok = dR < 1e-4 and abs(rg.sse - rc.sse) <= 1e-5 * abs(rc.sse) and rg.rounds == rc.rounds
-    chk.expect(ok, f"small solve card vs CPU: |dR| {dR:.3g}, sse {rg.sse:.7g} vs {rc.sse:.7g}, "
-                   f"nodes {rg.rot_nodes} vs {rc.rot_nodes}")
-    return dict(nodes_gpu=rg.rot_nodes, nodes_cpu=rc.rot_nodes, dR=dR,
-                sse_gpu=rg.sse, sse_cpu=rc.sse)
+    return card_vs_cpu(chk, dev, "small solve", src, tgt, p)
 
 
-def profile_solve(chk, dev, src, tgt, R_gt, t_gt):
-    """``--profile``: the bunny solve once more under ``torch.profiler``,
-    tracing device activity only (no host-op recording, so the host runs
-    almost as fast as untraced).  Reports the device's busy share of the
-    solve's wall (union of kernel and copy intervals) and device time by
-    kernel; the table goes to ``chiprun_out/chip_smoke_profile.json``."""
+def small_trimmed_agreement(chk, dev, src, tgt, R_gt, t_gt):
+    """Phase 5b: 300-point subsets of the trimmed pair, 30 rounds, on the
+    card and on the CPU path: trimmed on the default backend (K4), trimmed
+    with the screen opt-in (K5, K6), untrimmed with screen=False (K4)."""
+    rng = np.random.default_rng(3)
+    s = src[np.sort(rng.choice(src.shape[0], 300, replace=False))]
+    t = tgt[np.sort(rng.choice(tgt.shape[0], 300, replace=False))]
+    # 30 rounds and no wall budget: both devices run the same rounds
+    kw = dict(se3_pop=64, init_multistart=8, refine_top_k=2, max_rounds=30, max_wall_s=1e9)
+    out = {}
+    for label, trim, extra, expect in (
+        ("trimmed default", 0.25, {}, ("min_d2_nodes", "min_d2_groups")),
+        ("trimmed screen", 0.25, dict(bound_backend="screen"),
+         ("bounds_nodes_trimmed", "bounds_groups_trimmed")),
+        ("untrimmed screen=False", 0.0, dict(screen=False), ("min_d2_nodes",)),
+    ):
+        params, _ = solve_params(dev, s, t, R_gt, t_gt, trim, **kw, **extra)
+        out[label] = card_vs_cpu(chk, dev, f"small {label}", s, t, params, expect)
+    return out
+
+
+def profile_solve(chk, dev, label, src, tgt, R_gt, t_gt, trim: float = 0.0,
+                  wall_s: float = SOLVE_WALL_S):
+    """``--profile``: a solve once more under ``torch.profiler``, tracing
+    device activity only (no host-op recording, so the host runs almost as
+    fast as untraced), with a BnB budget of ``wall_s``.  Reports the
+    device's busy share of the solve's wall (union of kernel and copy
+    intervals) and device time by kernel; the tables go to
+    ``chiprun_out/chip_smoke_profile.json``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from goicp_tpu_torch import register
 
-    params, _ = solve_params(dev, src, tgt, R_gt, t_gt)
+    params, _ = solve_params(dev, src, tgt, R_gt, t_gt, trim, max_wall_s=wall_s)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -363,19 +739,31 @@ def profile_solve(chk, dev, src, tgt, R_gt, t_gt):
         n, us = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, us + (e - s))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    info = dict(wall_s=wall, rounds=res.rounds, nodes=res.rot_nodes,
+    info = dict(trim_fraction=trim, wall_s=wall, rounds=res.rounds, nodes=res.rot_nodes,
                 device_events=len(spans), device_busy_s=busy_us * 1e-6,
                 device_busy_share=busy_us * 1e-6 / wall,
                 by_kernel=[dict(name=k[:120], launches=n, device_s=us * 1e-6)
                            for k, (n, us) in top])
-    print("profile: " + json.dumps({k: info[k] for k in (
+    print(f"profile {label}: " + json.dumps({k: info[k] for k in (
         "wall_s", "rounds", "nodes", "device_events", "device_busy_s",
         "device_busy_share")}), flush=True)
     for row in info["by_kernel"][:12]:
         print(f"profile:   {row['device_s']:9.4f} s  {row['launches']:7d}x  {row['name']}",
               flush=True)
-    chk.expect(len(spans) > 0, f"profile traced {len(spans)} device events")
+    chk.expect(len(spans) > 0, f"profile {label} traced {len(spans)} device events")
     return info
+
+
+# (key, launch counter, the phase whose solve is the kernel's main path)
+KERNELS = (
+    ("K1", "nearest_neighbor_mxu", "solve"),
+    ("K2", "bounds_nodes", "solve"),
+    ("K3", "min_d2_groups", "solve"),
+    ("K4", "min_d2_nodes", "trimmed solve"),
+    ("K5", "bounds_nodes_trimmed", "trimmed screen solve"),
+    ("K6", "bounds_groups_trimmed", "trimmed screen solve"),
+    ("K7", "bounds_groups", None),
+)
 
 
 def main() -> int:
@@ -389,7 +777,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import goicp_tpu_torch  # noqa: F401  (sets the f32 precision policy)
-    from goicp_tpu_torch.nn import kernels
+    from goicp_tpu_torch.io import read_ply
+    from goicp_tpu_torch.nn import fused, kernels
 
     chk = Checks()
     t_start = time.perf_counter()
@@ -405,24 +794,52 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(kernels.sources())} sources", flush=True)
 
     src, tgt, R_gt, t_gt, n_full = load_bunny()
+    psrc, ptgt, pR, pt = load_bunny_partial()
     se3_pop = max(64, min(4096, int(32e6 / (8 * src.shape[0]))))   # bnb/se3.py auto
+    h_trim = int(round(N_SRC * (1.0 - TRIM)))
+    big = read_ply(os.path.join(HERE, "data_generated", "rotated_bunny.ply"))
+    big = big[np.sort(np.random.default_rng(4).choice(big.shape[0], 4096, replace=False))]
+    big = (big / np.abs(big).max()).astype(np.float32)
     dev = torch.device("cuda")
-    recs = kernel_checks(chk, dev, src, tgt, clock_mhz * 1e6, se3_pop)
-    solve = solve_bunny(chk, dev, src, tgt, R_gt, t_gt)
+    recs = kernel_checks(chk, dev, src, tgt, clock_mhz * 1e6, se3_pop, h_trim, big)
+    phases = {
+        "solve": solve_bunny(chk, dev, "solve", src, tgt, R_gt, t_gt,
+                             ("nearest_neighbor_mxu", "bounds_nodes", "min_d2_groups")),
+        "trimmed solve": solve_bunny(chk, dev, "trimmed solve", psrc, ptgt, pR, pt,
+                                     ("nearest_neighbor_mxu", "min_d2_nodes", "min_d2_groups"),
+                                     trim=TRIM),
+        "trimmed screen solve": solve_bunny(
+            chk, dev, "trimmed screen solve", psrc, ptgt, pR, pt,
+            ("nearest_neighbor_mxu", "bounds_nodes_trimmed", "bounds_groups_trimmed"),
+            trim=TRIM, bound_backend="screen", max_wall_s=SCREEN_WALL_S),
+    }
     small = small_agreement(chk, dev)
-    prof = profile_solve(chk, dev, src, tgt, R_gt, t_gt) if "--profile" in sys.argv[1:] else None
+    small_trim = small_trimmed_agreement(chk, dev, psrc, ptgt, pR, pt)
+    prof = None
+    if "--profile" in sys.argv[1:]:
+        prof = {"solve": profile_solve(chk, dev, "solve", src, tgt, R_gt, t_gt),
+                "trimmed solve": profile_solve(chk, dev, "trimmed solve", psrc, ptgt, pR, pt,
+                                               TRIM, PROFILE_TRIM_WALL_S)}
 
     kernels_line = []
-    for key, launch_name in (("K1", "nearest_neighbor_mxu"), ("K2", "bounds_nodes"),
-                             ("K3", "min_d2_groups")):
+    for key, counter, phase in KERNELS:
         r = dict(recs[key])
-        r["launches"] = solve["launches"][launch_name]
+        if phase is None:
+            r["launches"] = r.pop("check_launches")
+            r["launches_from"] = ("the phase 3 check only: no solver path calls it "
+                                  "(goicp_tpu/bnb/se3_eval.py:436)")
+        else:
+            r["launches"] = phases[phase]["launches"][counter]
+            r["launches_from"] = phase
+        r["launches_by_phase"] = {k: v["launches"][counter] for k, v in phases.items()}
         r["check"] = "fail" if any(f.startswith(key) for f in chk.failed) else "pass"
         kernels_line.append(r)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kind=kind, clock_mhz=clock_mhz, kernels=kernels_line,
-                       solve=solve, small=small, failed=chk.failed,
+                       solve=phases["solve"], trimmed_solve=phases["trimmed solve"],
+                       trimmed_screen_solve=phases["trimmed screen solve"],
+                       small=small, small_trimmed=small_trim, failed=chk.failed,
                        total_s=time.perf_counter() - t_start), f, indent=1)
     if prof is not None:
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:

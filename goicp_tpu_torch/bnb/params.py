@@ -48,8 +48,9 @@ class BnbParams:
     inner_levels: int = 7            # max inner subdivision depth
     inner_cap: int = 32              # translation frontier slots per rot cube
     point_tile: int = 128            # point-axis tile in the device inner BnB
-    bound_backend: str = "auto"      # "mxu" (the fused kernels K2/K3) |
-                                     # "screen" (the same, screened) |
+    bound_backend: str = "auto"      # "mxu" (K4/K3 + epilogue; K2 on
+                                     # untrimmed R-rounds while screen) |
+                                     # "screen" (K2, or K5/K6 when trimmed) |
                                      # "exact"/"grid" (not ported yet) |
                                      # "auto": mxu up to mxu_max targets
     bound_points: int = 8192         # BnB solves on at most this many source

@@ -154,7 +154,8 @@ class Se3RoundDriver:
 
     def dispatch_T(self, round_idx: int = 0) -> dict:
         """Pop translation-split nodes → 8 octant t-children per parent, all
-        sharing the parent rotation → one grouped round (kernel K3)."""
+        sharing the parent rotation → one grouped round (kernel K3, or K6 on
+        trimmed "screen" solves)."""
         s, m = self.s, self.m
         pay, pop_lb, pop_ub = self.fT.pop_best(self.pop_cap)
         B = pay.shape[0]
@@ -180,7 +181,7 @@ class Se3RoundDriver:
         mask = np.zeros(8 * G_cap, bool)
         mask[:C] = True
         ub, lb, R_flat, t_flat = se3_round_grouped_bounds(
-            s._src_dev, s.ev.norms, s._tgt_dev, self._slack,
+            s._src_dev, s.ev.norms, s._tgt_dev, self._slack, self.thresh(),
             self._dev(R_pad),
             self._angles(
                 np.concatenate([pay[:, 0:3], np.zeros((padg, 3), np.float32)]),
@@ -191,6 +192,7 @@ class Se3RoundDriver:
             self._dev(np.concatenate([ts8, np.zeros((padg, 8), np.float32)])),
             self._dev(mask, torch.bool),
             h=self._h,
+            backend=s._backend,
         )
         out = {"bounds": (ub, lb, R_flat, t_flat), "gate": self.refine_gate()}
         return {
@@ -207,7 +209,8 @@ class Se3RoundDriver:
 
     def dispatch_singleton(self, frontier, round_idx: int = 0) -> dict:
         """Pop from ``frontier`` (fR: rotation splits and leaves) → octant
-        children as singleton jobs → one screened round (kernel K2)."""
+        children as singleton jobs → one round (kernel K2 or K5 on the
+        "screen" backend, K4 on "mxu")."""
         m = self.m
         pay, pop_lb, pop_ub = frontier.pop_best(self.pop_cap)
         B = pay.shape[0]
@@ -251,8 +254,8 @@ class Se3RoundDriver:
         }
 
     def _eval_singleton(self, child):
-        """Pad ``child [C,8]`` payloads to a bucket and queue one screened
-        singleton round.  Returns ``(out, R_c, width)``."""
+        """Pad ``child [C,8]`` payloads to a bucket and queue one singleton
+        round.  Returns ``(out, R_c, width)``."""
         s = self.s
         C = child.shape[0]
         cap = self.bucket(C)
@@ -278,6 +281,7 @@ class Se3RoundDriver:
             self._dev(np.concatenate([np.ones(C, bool), np.zeros(padn, bool)]),
                       torch.bool),
             h=self._h,
+            backend=s._backend,
         )
         out = {"bounds": (ub, lb, R_dev, t_dev), "gate": self.refine_gate()}
         return out, R_c, cap

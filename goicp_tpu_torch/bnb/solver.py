@@ -53,8 +53,6 @@ def _check_params(params: BnbParams):
         raise ValueError(
             f"rotation_param must be one of {sorted(_PARAMS)}, got {params.rotation_param!r}"
         )
-    if params.trim_fraction > 0.0:
-        _not_ported("trim_fraction > 0", "The trimmed path")
     if params.engine == "nested":
         _not_ported("engine='nested'", "The nested engine")
     if params.icp_metric == "plane":
@@ -108,14 +106,11 @@ class GoIcpSolver:
             self._backend = params.bound_backend
             if n_tgt > params.mxu_max:
                 _not_ported(f"{n_tgt} targets (> mxu_max)", "The grid backend")
-        # the screened kernel K2 carries untrimmed R-rounds; without the
-        # screen the JAX package runs K4 there, which is not ported yet
-        if self._backend == "mxu":
-            if not params.screen:
-                raise NotImplementedError(
-                    "screen=False needs kernel K4 for R-rounds, not ported "
-                    "yet (ROADMAP queue 2)"
-                )
+        # the screened kernel K2 carries untrimmed R-rounds; trimmed solves
+        # and screen=False stay on "mxu" (K4 + epilogue), as the JAX package
+        # chooses (bnb/solver.py:188-193); bound_backend="screen" opts a
+        # trimmed solve in to K5/K6
+        if self._backend == "mxu" and params.screen and params.trim_fraction == 0.0:
             self._backend = "screen"
         if n_tgt > params.icp_exact_max:
             _not_ported(f"ICP against {n_tgt} targets (> icp_exact_max)", "The grid backend")
@@ -208,7 +203,8 @@ class GoIcpSolver:
         return best_R, best_t, best_sse
 
     def score_full(self, R, t):
-        """SSE of the FULL source cloud at one pose (``solver.py:389``)."""
+        """(Trimmed) SSE of the FULL source cloud at one pose
+        (``solver.py:389``)."""
         params = IcpParams(max_iter=0, rel_tol=0.0, trim_fraction=self.p.trim_fraction)
         res = self._icp(
             self._to(self.src_full), self._tgt_dev,
@@ -218,14 +214,21 @@ class GoIcpSolver:
 
     def _full_cert(self, best_R, best_t, best_sse, gap):
         """Full-cloud certificate under ``bound_points``: ``(sse_full,
-        mse_full, gap_full)``, all None when the BnB solved the whole cloud
-        (``solver.py:410``; the derivation of the slack is there)."""
+        mse_full, gap_full)``, all None when the BnB solved the whole cloud,
+        ``gap_full`` None when trimmed (``solver.py:410``; the derivation
+        of the slack is there)."""
         n_full = self.src_full.shape[0]
         if n_full <= self.src.shape[0]:
             return None, None, None
         sse_full = self.score_full(best_R, best_t)
         h_full = max(1, int(round(n_full * (1.0 - self.p.trim_fraction))))
         mse_full = sse_full / h_full
+        if self.p.trim_fraction > 0.0:
+            # no gap at equal trim fractions: the h_full smallest full-cloud
+            # terms need not contain the h_sub smallest subset terms, so the
+            # subset-⊆-full inequality fails between trimmed sums
+            # (solver.py:423-431; the sound transfer is register_full_cert)
+            return sse_full, mse_full, None
         if not math.isfinite(gap):
             slack_g = self.sse_thresh
         else:

@@ -14,9 +14,14 @@
 
 namespace goicp {
 
+constexpr int kMaxWarps = 32;   // block reductions hold one partial per warp
+constexpr int kGrTile = 256;    // targets staged per pass by the grouped kernels
+constexpr float kPadSentinel = 1e30f;  // screened ub; padded trimmed terms
+
 __device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float finf() { return __int_as_float(0x7f800000); }
 
 // ((x*r0 + y*r1) + z*r2): one row of R·p, in the JAX kernels' order.
 __device__ __forceinline__ float dot3(float x, float y, float z,
@@ -38,6 +43,217 @@ __device__ __forceinline__ void stage_targets(float4* tile, const float* wm,
     const float* w = wm + static_cast<size_t>(m0 + k) * 8;
     tile[k] = make_float4(w[0], w[1], w[2], 0.f);
   }
+}
+
+// min over all Mp targets of |m - q|², staging TILE targets at a time
+// through shared `tile`.  Every thread of the CTA calls it (it syncs).
+template <int TILE>
+__device__ __forceinline__ float min_dist2(float4* tile, const float* wm,
+                                           int Mp, float qx, float qy,
+                                           float qz) {
+  float best = finf();
+  for (int m0 = 0; m0 < Mp; m0 += TILE) {
+    const int n = min(TILE, Mp - m0);
+    __syncthreads();
+    stage_targets(tile, wm, m0, n);
+    __syncthreads();
+    for (int k = 0; k < n; ++k) best = fminf(best, dist2(tile[k], qx, qy, qz));
+  }
+  return best;
+}
+
+// The grouped kernels' separable form (mxu.py:_min_d2_grouped_kernel): for
+// u = R_g·p and the group's 8 sibling translations t_j,
+//     best[j] = min over m of (|u - m|² + b_j[m]),  b_j[m] = |t_j|² - 2 t_j·m.
+// `gp` is the group's parameter row (R×9 at 0, t8×24 at 9, |t_j|²×8 at 33).
+// The CTA stages kGrTile targets at a time into `tw`, with all 8 b_j[m] in
+// `tb`, so b_j is computed once per (group, target) per CTA.  Every thread
+// calls it (it syncs).
+__device__ __forceinline__ void grouped_min(float (&best)[8], float4* tw,
+                                            float4 (*tb)[2], const float* gp,
+                                            const float* wm, int Mp, float ux,
+                                            float uy, float uz) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) best[j] = finf();
+  for (int m0 = 0; m0 < Mp; m0 += kGrTile) {
+    const int n = min(kGrTile, Mp - m0);
+    __syncthreads();
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      const float* w = wm + static_cast<size_t>(m0 + k) * 8;
+      const float wx = w[0], wy = w[1], wz = w[2];
+      tw[k] = make_float4(wx, wy, wz, 0.f);
+      float b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float s = dot3(gp[9 + 3 * j], gp[10 + 3 * j], gp[11 + 3 * j],
+                             wx, wy, wz);
+        b[j] = fsub(gp[33 + j], fmul(2.f, s));
+      }
+      tb[k][0] = make_float4(b[0], b[1], b[2], b[3]);
+      tb[k][1] = make_float4(b[4], b[5], b[6], b[7]);
+    }
+    __syncthreads();
+    for (int k = 0; k < n; ++k) {
+      const float G = dist2(tw[k], ux, uy, uz);
+      const float4 b0 = tb[k][0], b1 = tb[k][1];
+      best[0] = fminf(best[0], fadd(G, b0.x));
+      best[1] = fminf(best[1], fadd(G, b0.y));
+      best[2] = fminf(best[2], fadd(G, b0.z));
+      best[3] = fminf(best[3], fadd(G, b0.w));
+      best[4] = fminf(best[4], fadd(G, b1.x));
+      best[5] = fminf(best[5], fadd(G, b1.y));
+      best[6] = fminf(best[6], fadd(G, b1.z));
+      best[7] = fminf(best[7], fadd(G, b1.w));
+    }
+  }
+}
+
+// Sibling j's squared distance from its grouped minimum: max(best + a_j, 0)
+// with a_j = 2 t_j·u, added after the min as in the TPU kernel.
+__device__ __forceinline__ float grouped_d2(const float* gp, int j, float best,
+                                            float ux, float uy, float uz) {
+  const float a = fmul(2.f, dot3(gp[9 + 3 * j], gp[10 + 3 * j], gp[11 + 3 * j],
+                                 ux, uy, uz));
+  return fmaxf(fadd(best, a), 0.f);
+}
+
+// Yang et al. eq. 10 per point, from the squared distance d2:
+//   d_hi = d + slack,  c = max(max(d - slack, 0) - (af·|p| + γt), 0)
+// (the ub term is d_hi², the lb term c²).
+__device__ __forceinline__ void point_terms(float d2, float slack, float af,
+                                            float pn, float gt, float& d_hi,
+                                            float& c) {
+  const float d = sqrtf(fmaxf(d2, 0.f));
+  d_hi = fadd(d, slack);
+  const float d_lo = fmaxf(fsub(d, slack), 0.f);
+  c = fmaxf(fsub(d_lo, fadd(fmul(af, pn), gt)), 0.f);
+}
+
+struct SumF {
+  __device__ static float op(float a, float b) { return fadd(a, b); }
+};
+struct SumI {
+  __device__ static int op(int a, int b) { return a + b; }
+};
+struct MaxF {
+  __device__ static float op(float a, float b) { return fmaxf(a, b); }
+};
+
+// K reductions over the CTA at once (blockDim.x a multiple of 32): a warp
+// butterfly, lane 0 posts its warp's partial, and every thread folds the
+// partials in warp order, so all threads return the same values and the
+// order is fixed.  `red` is shared, K × kMaxWarps entries.
+template <class Op, int K, typename T>
+__device__ __forceinline__ void block_reduce(T (&v)[K], T* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] = Op::op(v[k], __shfl_xor_sync(0xffffffffu, v[k], off));
+    if (lane == 0) red[k * kMaxWarps + warp] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    T s = red[k * kMaxWarps];
+    for (int w = 1; w < nwarps; ++w) s = Op::op(s, red[k * kMaxWarps + w]);
+    v[k] = s;
+  }
+  __syncthreads();  // red is rewritten by the next call
+}
+
+// Exact trimmed sums of R rows x[r*Np + i] (the h smallest of each row) by
+// the 24-step threshold bisection of mxu.py's trimmed kernels
+// (≙ bnb/se3_eval.py:_trimmed_sum_bisect): hi starts at the largest
+// non-sentinel entry + 1e-12, each step halves [lo, hi] on whether at
+// least h entries are ≤ mid.  The counts are exact integers, so lo and hi
+// come out bit-equal to the plain version; only the final sums S depend on
+// the reduction order.  Returns S + (h - C)⁺·hi in up[r] (the upper end)
+// and S + (h - C)⁺·lo in down[r] (the lower end).  `x` is shared or global
+// memory written by this CTA before a __syncthreads(); every thread calls
+// it and gets the same results.
+template <int R>
+__device__ __forceinline__ void trimmed_bisect(const float* x, int Np, int h,
+                                               float* fred, int* ired,
+                                               float (&up)[R], float (&down)[R]) {
+  float mx[R], lo[R], hi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float m = 0.f;
+    for (int i = threadIdx.x; i < Np; i += blockDim.x) {
+      const float v = x[static_cast<size_t>(r) * Np + i];
+      m = fmaxf(m, v < 1e29f ? v : 0.f);
+    }
+    mx[r] = m;
+  }
+  block_reduce<MaxF>(mx, fred);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    lo[r] = 0.f;
+    hi[r] = fadd(mx[r], 1e-12f);
+  }
+  const float hf = static_cast<float>(h);
+  for (int it = 0; it < 24; ++it) {
+    float mid[R];
+    int cnt[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      mid[r] = fmul(0.5f, fadd(lo[r], hi[r]));
+      int c = 0;
+      for (int i = threadIdx.x; i < Np; i += blockDim.x)
+        c += x[static_cast<size_t>(r) * Np + i] <= mid[r];
+      cnt[r] = c;
+    }
+    block_reduce<SumI>(cnt, ired);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool take = static_cast<float>(cnt[r]) >= hf;
+      lo[r] = take ? lo[r] : mid[r];
+      hi[r] = take ? mid[r] : hi[r];
+    }
+  }
+  float S[R];
+  int C[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float s = 0.f;
+    int c = 0;
+    for (int i = threadIdx.x; i < Np; i += blockDim.x) {
+      const float v = x[static_cast<size_t>(r) * Np + i];
+      if (v <= lo[r]) {
+        s = fadd(s, v);
+        ++c;
+      }
+    }
+    S[r] = s;
+    C[r] = c;
+  }
+  block_reduce<SumF>(S, fred);
+  block_reduce<SumI>(C, ired);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float rem = fmaxf(fsub(hf, static_cast<float>(C[r])), 0.f);
+    up[r] = fadd(S[r], fmul(rem, hi[r]));
+    down[r] = fadd(S[r], fmul(rem, lo[r]));
+  }
+}
+
+// Dynamic shared memory for a kernel that stages `dyn_bytes`: true when it
+// fits beside the kernel's static shared memory under the device's opt-in
+// limit (and then the opt-in is set).  When it is false, K5's launch fails
+// and K6 stages in global memory instead.
+template <typename Kernel>
+inline bool smem_fits(Kernel kernel, size_t dyn_bytes) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return false;
+  if (fa.sharedSizeBytes + dyn_bytes > static_cast<size_t>(optin)) return false;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(dyn_bytes)) == cudaSuccess;
 }
 
 }  // namespace goicp

@@ -9,9 +9,10 @@
 //     b_j[m] = |t_j|² - 2 t_j·m,              a_j = 2 t_j·u,
 //
 // is evaluated exactly as the TPU kernel does: min over m of (G + b_j), then
-// + a_j, then clamped at 0.  It rounds differently from the direct
-// |u + t_j - m|², and the bounds must match the reference, so the direct
-// form is not used.  Output row 8g + j, column = point.
+// + a_j, then clamped at 0 (common.cuh: grouped_min, grouped_d2).  It rounds
+// differently from the direct |u + t_j - m|², and the bounds must match the
+// reference, so the direct form is not used.  Output row 8g + j, column =
+// point.
 //
 // What bounds it on an H100: arithmetic.  Per (point, target) pair the base
 // plane G costs 8 operations once for the group and each sibling 2 (add,
@@ -27,7 +28,6 @@
 namespace goicp {
 
 constexpr int kGrThreads = 128;
-constexpr int kGrTile = 256;
 
 __global__ void __launch_bounds__(kGrThreads)
 min_d2_grouped_kernel(const float* __restrict__ gparams,  // [G, 48]
@@ -55,47 +55,11 @@ min_d2_grouped_kernel(const float* __restrict__ gparams,  // [G, 48]
   const float uz = dot3(px, py, pz, gp[6], gp[7], gp[8]);
 
   float best[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) best[j] = __int_as_float(0x7f800000);
-
-  for (int m0 = 0; m0 < Mp; m0 += kGrTile) {
-    const int n = min(kGrTile, Mp - m0);
-    __syncthreads();
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      const float* w = wm + static_cast<size_t>(m0 + k) * 8;
-      const float wx = w[0], wy = w[1], wz = w[2];
-      tw[k] = make_float4(wx, wy, wz, 0.f);
-      float b[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float s = dot3(gp[9 + 3 * j], gp[10 + 3 * j], gp[11 + 3 * j],
-                             wx, wy, wz);
-        b[j] = fsub(gp[33 + j], fmul(2.f, s));
-      }
-      tb[k][0] = make_float4(b[0], b[1], b[2], b[3]);
-      tb[k][1] = make_float4(b[4], b[5], b[6], b[7]);
-    }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float G = dist2(tw[k], ux, uy, uz);
-      const float4 b0 = tb[k][0], b1 = tb[k][1];
-      best[0] = fminf(best[0], fadd(G, b0.x));
-      best[1] = fminf(best[1], fadd(G, b0.y));
-      best[2] = fminf(best[2], fadd(G, b0.z));
-      best[3] = fminf(best[3], fadd(G, b0.w));
-      best[4] = fminf(best[4], fadd(G, b1.x));
-      best[5] = fminf(best[5], fadd(G, b1.y));
-      best[6] = fminf(best[6], fadd(G, b1.z));
-      best[7] = fminf(best[7], fadd(G, b1.w));
-    }
-  }
+  grouped_min(best, tw, tb, gp, wm, Mp, ux, uy, uz);
   if (i < Np) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float a = fmul(2.f, dot3(gp[9 + 3 * j], gp[10 + 3 * j],
-                                     gp[11 + 3 * j], ux, uy, uz));
-      d2[(static_cast<size_t>(g) * 8 + j) * Np + i] = fmaxf(fadd(best[j], a), 0.f);
-    }
+    for (int j = 0; j < 8; ++j)
+      d2[(static_cast<size_t>(g) * 8 + j) * Np + i] = grouped_d2(gp, j, best[j], ux, uy, uz);
   }
 }
 

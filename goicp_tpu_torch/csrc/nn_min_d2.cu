@@ -6,6 +6,12 @@
 // form, and the index of the EARLIEST target reaching it (strict <, as the
 // TPU kernel's cross-chunk merge at mxu.py:131-135).
 //
+// K4 is the same kernel with a null index (want_idx=False, from
+// min_d2_nodes): B node poses (up to 8·se3_pop = 21,080 at the bunny's
+// shapes) over the whole source cloud, the per-point distances that the
+// R-rounds of the "mxu" backend deflate and (trimmed-)sum.  Its grid is
+// Np/128 x B blocks, so it fills the card; bound by arithmetic as above.
+//
 // What bounds it on an H100: arithmetic.  Each (query, target) pair costs
 // 3 subtractions, 3 multiplies, 2 adds and a compare-select, and the targets
 // are read from shared memory as broadcasts, so device memory sees each
@@ -68,12 +74,21 @@ nn_min_d2_kernel(const float* __restrict__ params,   // [B, 16]
 
 }  // namespace goicp
 
+// idx may be null (K4: min_d2_nodes, mxu.py:361, distances only).  B rows
+// go out in launches of at most 65,535 (the grid's y limit).
 extern "C" int goicp_nn_min_d2(const float* params, int B, const float* srcT,
                                int Np, const float* wm, int Mp, float* d2,
                                int* idx, void* stream) {
-  dim3 grid((Np + goicp::kNnThreads - 1) / goicp::kNnThreads, B);
-  goicp::nn_min_d2_kernel<<<grid, goicp::kNnThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      params, srcT, Np, wm, Mp, d2, idx);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int kMaxY = 65535;
+  for (int b0 = 0; b0 < B; b0 += kMaxY) {
+    const size_t off = static_cast<size_t>(b0) * Np;
+    dim3 grid((Np + goicp::kNnThreads - 1) / goicp::kNnThreads, min(kMaxY, B - b0));
+    goicp::nn_min_d2_kernel<<<grid, goicp::kNnThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        params + static_cast<size_t>(b0) * 16, srcT, Np, wm, Mp, d2 + off,
+        idx == nullptr ? nullptr : idx + off);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

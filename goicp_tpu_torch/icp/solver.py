@@ -1,5 +1,6 @@
 """Batched ICP — the local refiner of the SE(3) engine (port of the JAX
-package's ``icp/solver.py``: the point metric with exact correspondences).
+package's ``icp/solver.py``: the point metric with exact correspondences,
+plain or trimmed).
 
 One masked loop refines a batch ``[B]`` of poses together; Procrustes is
 Horn's quaternion method (:mod:`goicp_tpu_torch.geo.procrustes`) and the
@@ -29,7 +30,7 @@ class IcpParams:
 
     max_iter: int = 128          # ref: 1000 initial / 500 refine (fgoicp.cpp:11,77)
     rel_tol: float = 1e-3        # ref convergence_threshold (icp3d.cu:95)
-    trim_fraction: float = 0.0   # trimmed ICP: not ported yet (ROADMAP queue 1)
+    trim_fraction: float = 0.0   # keep the n(1 − trim) closest pairs per pose
     metric: str = "point"        # "plane": not ported yet (ROADMAP queue 1)
 
 
@@ -53,12 +54,26 @@ def exact_correspondence(targets) -> Callable:
     return corr
 
 
+def trim_weights(d2, trim_fraction: float):
+    """0/1 inlier weights keeping the ``n(1 − trim)`` closest pairs per pose
+    (``icp/solver.py:172``): ``d2 [..., N]``, threshold the k-th smallest
+    distance, so ties at it can admit more than k points."""
+    n = d2.shape[-1]
+    k = max(1, int(round(n * (1.0 - trim_fraction))))
+    if k >= n:
+        return torch.ones_like(d2)
+    kth = torch.kthvalue(d2, k, dim=-1, keepdim=True).values
+    return (d2 <= kth).to(d2.dtype)
+
+
+def sse_of_distances(d2, trim_fraction: float = 0.0):
+    """(Trimmed) SSE from per-point squared distances ``[..., N]``."""
+    if trim_fraction > 0.0:
+        return (d2 * trim_weights(d2, trim_fraction)).sum(-1)
+    return d2.sum(-1)
+
+
 def _check_params(params: IcpParams):
-    if params.trim_fraction > 0.0:
-        raise NotImplementedError(
-            "trimmed ICP is not ported yet (ROADMAP queue 1, item 7: the "
-            "trimmed path)"
-        )
     if params.metric != "point":
         raise NotImplementedError(
             f"icp metric {params.metric!r} is not ported yet (ROADMAP queue 1, "
@@ -81,6 +96,8 @@ def run_icp(
     ``iters=0`` (the round tail's refine gate).  Per-pose convergence:
     relative SSE improvement below ``rel_tol`` (``icp3d.cu:95``).
     ``max_iter=0`` scores the initial poses with one correspondence pass.
+    With ``trim_fraction > 0`` the SSE and the Procrustes step weigh only
+    each pose's ``n(1 − trim)`` closest pairs (:func:`trim_weights`).
     """
     _check_params(params)
     batched = init.t.dim() > 1
@@ -89,14 +106,23 @@ def run_icp(
     B = t0.shape[0]
     dev = t0.device
 
+    tf = params.trim_fraction
+
     def _unbatch(R, t, sse, iters):
         if not batched:
             R, t, sse, iters = R[0], t[0], sse[0], iters[0]
         return IcpResult(RigidTransform(R, t), sse, iters)
 
+    def _weights(d2):
+        return trim_weights(d2, tf) if tf > 0.0 else None
+
+    def _sse(d2, w):
+        return d2.sum(-1) if w is None else (d2 * w).sum(-1)
+
     if params.max_iter == 0:
         _, d2 = corr(RigidTransform(R0, t0).apply(src))
-        return _unbatch(R0, t0, d2.sum(-1), torch.zeros((B,), dtype=torch.int32, device=dev))
+        return _unbatch(R0, t0, _sse(d2, _weights(d2)),
+                        torch.zeros((B,), dtype=torch.int32, device=dev))
 
     if active0 is None:
         active = torch.ones((B,), dtype=torch.bool, device=dev)
@@ -110,7 +136,8 @@ def run_icp(
     while it < params.max_iter and bool(active.any()):
         pts = RigidTransform(R_cur, t_cur).apply(src)        # [B,N,3]
         dst, d2 = corr(pts)
-        sse_cur = d2.sum(-1)
+        w = _weights(d2)
+        sse_cur = _sse(d2, w)
         take = active & (sse_cur < sse_best)
         R_best = torch.where(take[:, None, None], R_cur, R_best)
         t_best = torch.where(take[:, None], t_cur, t_best)
@@ -118,7 +145,7 @@ def run_icp(
             sse_best - sse_cur >= params.rel_tol * torch.clamp(sse_cur, min=1e-30)
         )
         sse_best = torch.where(take, sse_cur, sse_best)
-        R_d, t_d = procrustes(pts, dst)
+        R_d, t_d = procrustes(pts, dst, weights=w)
         nxt = RigidTransform(R_d, t_d).compose(RigidTransform(R_cur, t_cur))
         R_cur = torch.where(still[:, None, None], nxt.R, R_cur)
         t_cur = torch.where(still[:, None], nxt.t, t_cur)

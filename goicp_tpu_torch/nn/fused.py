@@ -9,10 +9,13 @@ padded to multiples of 128; one parameter row per node or group.  The
 ``pack_*`` functions take numpy arrays or tensors and give the JAX
 package's arrays bit for bit.
 
-Each wrapper (:func:`nearest_neighbor_mxu` K1, :func:`min_d2_groups` K3,
-:func:`bounds_nodes` K2) runs its CUDA kernel (``csrc/``) for CUDA tensors
-and its plain PyTorch version for CPU tensors; there is no fallback from one
-to the other.  Every kernel launch adds one to :data:`launches`.
+Each wrapper (:func:`nearest_neighbor_mxu` K1, :func:`bounds_nodes` K2,
+:func:`min_d2_groups` K3, :func:`min_d2_nodes` K4,
+:func:`bounds_nodes_trimmed` K5, :func:`bounds_groups_trimmed` K6,
+:func:`bounds_groups` K7) runs its CUDA kernel (``csrc/``) for CUDA tensors
+and its plain PyTorch version (``*_plain``) for CPU tensors; there is no
+fallback from one to the other.  Every kernel launch adds one to
+:data:`launches`.
 """
 
 from __future__ import annotations
@@ -26,10 +29,15 @@ _PAD_TGT = 1e15     # padded targets: far off every min
 TQB = 384           # point-block cap of the screened bounds (mxu.py:391)
 _MAX_ELEMS = 1 << 24
 _INF = float("inf")
+_SENTINEL = 1e30    # screened ub; padded terms of the trimmed sums
 
 # launches of each kernel in this process (plain integers; reset by callers
 # that measure a run, e.g. chip_smoke.py)
-launches = {"nearest_neighbor_mxu": 0, "min_d2_groups": 0, "bounds_nodes": 0}
+launches = {
+    "nearest_neighbor_mxu": 0, "bounds_nodes": 0, "min_d2_groups": 0,
+    "min_d2_nodes": 0, "bounds_nodes_trimmed": 0, "bounds_groups_trimmed": 0,
+    "bounds_groups": 0,
+}
 
 
 def reset_launch_counts():
@@ -129,16 +137,56 @@ def pack_params_bounds(R, t, af, gt, slack, thresh) -> torch.Tensor:
     B = R.shape[0]
     dev = R.device
     return torch.cat(
-        [
-            R.reshape(B, 9),
-            _f32(t, dev),
-            _f32(af, dev)[:, None],
-            _f32(gt, dev)[:, None],
-            torch.full((B, 1), float(slack), dtype=torch.float32, device=dev),
-            torch.full((B, 1), float(thresh), dtype=torch.float32, device=dev),
-        ],
+        [R.reshape(B, 9), _f32(t, dev), _f32(af, dev)[:, None], _f32(gt, dev)[:, None],
+         _col(float(slack), B, dev), _col(float(thresh), B, dev)],
         dim=1,
     )
+
+
+def _col(x, n: int, dev) -> torch.Tensor:
+    """A scalar or ``[n]`` value as an ``[n, 1]`` f32 column."""
+    return _f32(x, dev).expand(n)[:, None]
+
+
+def pack_params_bounds_trimmed(R, t, af, gt, slack, thresh_eff, tau) -> torch.Tensor:
+    """``[B,24]`` rows (R×9, t×3, af, γt, slack, thresh', τ, pad)
+    (``mxu.py:757``); ``thresh_eff`` and ``tau`` are scalars or ``[B]``."""
+    R = _f32(R)
+    B = R.shape[0]
+    dev = R.device
+    return torch.cat(
+        [R.reshape(B, 9), _f32(t, dev), _f32(af, dev)[:, None], _f32(gt, dev)[:, None],
+         _col(slack, B, dev), _col(thresh_eff, B, dev), _col(tau, B, dev),
+         torch.zeros((B, 7), dtype=torch.float32, device=dev)],
+        dim=1,
+    )
+
+
+def _pack_group_bounds(R, t8, af, gt8, tail) -> torch.Tensor:
+    R = _f32(R)
+    t8 = _f32(t8, R.device)
+    G = R.shape[0]
+    dev = R.device
+    cols = [_col(x, G, dev) for x in tail]
+    return torch.cat(
+        [R.reshape(G, 9), t8.reshape(G, 24), _sq3(t8), _f32(af, dev)[:, None],
+         _f32(gt8, dev).reshape(G, 8), *cols,
+         torch.zeros((G, 64 - 50 - len(cols)), dtype=torch.float32, device=dev)],
+        dim=1,
+    )
+
+
+def pack_group_params_bounds(R, t8, af, gt8, slack, thresh) -> torch.Tensor:
+    """``[G,64]`` rows (R×9, t8×24, |t_j|²×8, af, γt×8, slack, thresh, pad)
+    (``mxu.py:991``)."""
+    return _pack_group_bounds(R, t8, af, gt8, (slack, thresh))
+
+
+def pack_group_params_bounds_trimmed(R, t8, af, gt8, slack, thresh_eff,
+                                     tau) -> torch.Tensor:
+    """``[G,64]`` rows (R×9, t8×24, |t_j|²×8, af, γt×8, slack, thresh', τ,
+    pad) (``mxu.py:939``); ``thresh_eff`` and ``tau`` are scalars or ``[G]``."""
+    return _pack_group_bounds(R, t8, af, gt8, (slack, thresh_eff, tau))
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +218,12 @@ def _expect(name: str, t: torch.Tensor, shape, dtype=torch.float32):
 
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(name: str, fn, *args):
+    """Call the C entry point ``fn``, raise on its CUDA error, count it."""
+    kernels.check(fn(*args), name)
+    launches[name] += 1
 
 
 def _rows(P, r0: int, px, py, pz):
@@ -221,12 +275,9 @@ def _nn_kernel(flat, targets):
     _expect("nearest_neighbor_mxu", wm, (Mp, 8))
     d2 = torch.empty((1, Np), dtype=torch.float32, device=dev)
     idx = torch.empty((1, Np), dtype=torch.int32, device=dev)
-    err = kernels.lib().goicp_nn_min_d2(
-        params.data_ptr(), 1, srcT.data_ptr(), Np, wm.data_ptr(), Mp,
-        d2.data_ptr(), idx.data_ptr(), _stream(flat),
-    )
-    kernels.check(err, "nearest_neighbor_mxu")
-    launches["nearest_neighbor_mxu"] += 1
+    _launch("nearest_neighbor_mxu", kernels.lib().goicp_nn_min_d2,
+            params.data_ptr(), 1, srcT.data_ptr(), Np, wm.data_ptr(), Mp,
+            d2.data_ptr(), idx.data_ptr(), _stream(flat))
     return idx[0, :flat.shape[0]]
 
 
@@ -299,13 +350,84 @@ def min_d2_groups(srcT, wm, gparams):
     d2 = torch.empty((8 * G, Np), dtype=torch.float32, device=srcT.device)
     if G == 0:
         return d2
-    err = kernels.lib().goicp_min_d2_grouped(
-        gparams.data_ptr(), G, srcT.data_ptr(), Np, wm.data_ptr(), Mp,
-        d2.data_ptr(), _stream(srcT),
-    )
-    kernels.check(err, "min_d2_groups")
-    launches["min_d2_groups"] += 1
+    _launch("min_d2_groups", kernels.lib().goicp_min_d2_grouped,
+            gparams.data_ptr(), G, srcT.data_ptr(), Np, wm.data_ptr(), Mp,
+            d2.data_ptr(), _stream(srcT))
     return d2
+
+
+# ---------------------------------------------------------------------------
+# plain helpers shared by the bound kernels K2, K5, K6, K7
+# ---------------------------------------------------------------------------
+
+
+def _point_terms(d2, slack, af, pn, gt):
+    """Yang et al. eq. 10 per point from squared distances: ``d_hi = d +
+    slack`` and ``c = max(max(d − slack, 0) − (af·|p| + γt), 0)`` (the ub
+    term is ``d_hi²``, the lb term ``c²``), in the kernels' order."""
+    d = torch.sqrt(torch.clamp(d2, min=0.0))
+    d_hi = d + slack
+    d_lo = torch.clamp(d - slack, min=0.0)
+    return d_hi, torch.clamp(d_lo - (af * pn + gt), min=0.0)
+
+
+def _block_sums(x, tq: int):
+    """Sums over point blocks of ``tq``: ``[..., Np] → [..., Np/tq]``."""
+    return x.reshape(*x.shape[:-1], x.shape[-1] // tq, tq).sum(-1)
+
+
+def _scan(blks, thresh, group: bool):
+    """Carry the block sums ``blks`` (``[B, nb]``, or ``[G, 8, nb]`` when
+    ``group``) block by block while the last one's carry — for a group the
+    smallest of its 8 siblings — is below ``thresh`` ``[B]``/``[G]``, as the
+    TPU kernels' ``lax.cond`` per block does.  Returns the carries and the
+    blocks run per row."""
+    accs = [torch.zeros(b.shape[:-1], dtype=torch.float32, device=b.device) for b in blks]
+    runs = torch.zeros(thresh.shape, dtype=torch.int64, device=thresh.device)
+    for n in range(blks[0].shape[-1]):
+        lead = accs[-1].amin(-1) if group else accs[-1]
+        run = lead < thresh
+        r = run[:, None] if group else run
+        accs = [torch.where(r, a + b[..., n], a) for a, b in zip(accs, blks)]
+        runs += run
+    return accs, runs
+
+
+def screen_scan(ub_blk, lb_blk, thresh, group: bool = False):
+    """The screening rule over block sums: a block is added only while the
+    carried lb (a group's smallest) is below ``thresh``; ub = 1e30 once it
+    is not (``mxu.py:462-473``, ``:575-581``).  Returns ``(ub, lb,
+    blocks_run)``."""
+    (ub, lb), blocks = _scan([ub_blk, lb_blk], thresh, group)
+    keep = (lb.amin(-1) < thresh)[:, None] if group else lb < thresh
+    return torch.where(keep, ub, torch.full_like(ub, _SENTINEL)), lb, blocks
+
+
+def trimmed_sum_bisect(x, h: int, upper: bool, iters: int = 24):
+    """Sum of the ``h`` smallest entries per row of ``x [M, Np]`` by
+    bisection on a value threshold (``bnb/se3_eval.py:30``, and the
+    in-kernel reduction of ``mxu.py``'s trimmed kernels): after ``iters``
+    halvings ``S(lo) + (h − C(lo))·lo ≤ trimmed_h ≤ S(lo) + (h − C(lo))·hi``
+    with ``S``/``C`` the masked sum and count; ``upper`` picks the side.
+    Entries ≥ 1e29 are padding and never counted."""
+    rowmax = torch.where(x < 1e29, x, torch.zeros_like(x)).amax(-1)
+    lo = torch.zeros_like(rowmax)
+    hi = rowmax + 1e-12
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        cnt = (x <= mid[:, None]).sum(-1).to(torch.float32)
+        take = cnt >= h
+        lo, hi = torch.where(take, lo, mid), torch.where(take, mid, hi)
+    sel = x <= lo[:, None]
+    S = torch.where(sel, x, torch.zeros_like(x)).sum(-1)
+    C = sel.sum(-1).to(torch.float32)
+    rem = torch.clamp(h - C, min=0.0)
+    return S + rem * (hi if upper else lo)
+
+
+def _staged(term, pv):
+    """A trimmed kernel's scratch row: ``term·valid``, padding at 1e30."""
+    return term * pv + (1.0 - pv) * _SENTINEL
 
 
 # ---------------------------------------------------------------------------
@@ -316,36 +438,14 @@ def min_d2_groups(srcT, wm, gparams):
 def bounds_block_sums_plain(srcT_ext, wm, params):
     """Per point-block sums of the ub and lb terms, ``[B, nb]`` each, with
     blocks of ``tq = _pick_tile(Np, 384)`` points (no screening)."""
-    B, Np = params.shape[0], srcT_ext.shape[1]
+    Np = srcT_ext.shape[1]
     tq = _pick_tile(Np, TQB)
-    qx, qy, qz = _transform(params, srcT_ext)
-    d = torch.sqrt(torch.clamp(_min_d2_plain(qx, qy, qz, wm), min=0.0))
-    slack = params[:, 14:15]
-    d_hi = d + slack
-    d_lo = torch.clamp(d - slack, min=0.0)
-    defl = params[:, 12:13] * srcT_ext[3][None] + params[:, 13:14]
-    lb_c = torch.clamp(d_lo - defl, min=0.0)
+    d_hi, c = _point_terms(
+        _min_d2_plain(*_transform(params, srcT_ext), wm), params[:, 14:15],
+        params[:, 12:13], srcT_ext[3][None], params[:, 13:14],
+    )
     pv = srcT_ext[4][None]
-    ub_t = (d_hi * d_hi) * pv
-    lb_t = (lb_c * lb_c) * pv
-    nb = Np // tq
-    return ub_t.reshape(B, nb, tq).sum(-1), lb_t.reshape(B, nb, tq).sum(-1)
-
-
-def screen_scan(ub_blk, lb_blk, thresh):
-    """The screening rule over block sums: a block is added only while the
-    carried lb is below ``thresh``; ub = 1e30 once lb ≥ thresh
-    (``mxu.py:462-473``).  Returns ``(ub, lb, blocks_run)``."""
-    B, nb = ub_blk.shape
-    ub = torch.zeros((B,), dtype=torch.float32, device=ub_blk.device)
-    lb = torch.zeros_like(ub)
-    blocks = torch.zeros((B,), dtype=torch.int64, device=ub_blk.device)
-    for n in range(nb):
-        run = lb < thresh
-        ub = torch.where(run, ub + ub_blk[:, n], ub)
-        lb = torch.where(run, lb + lb_blk[:, n], lb)
-        blocks += run
-    return torch.where(lb < thresh, ub, torch.full_like(ub, 1e30)), lb, blocks
+    return _block_sums((d_hi * d_hi) * pv, tq), _block_sums((c * c) * pv, tq)
 
 
 def bounds_nodes_plain(srcT_ext, wm, params):
@@ -368,10 +468,181 @@ def bounds_nodes(srcT_ext, wm, params):
     lb = torch.empty_like(ub)
     if B == 0:
         return ub, lb
-    err = kernels.lib().goicp_bounds_nodes(
-        params.data_ptr(), B, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
-        _pick_tile(Np, TQB), ub.data_ptr(), lb.data_ptr(), _stream(params),
+    _launch("bounds_nodes", kernels.lib().goicp_bounds_nodes,
+            params.data_ptr(), B, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
+            _pick_tile(Np, TQB), ub.data_ptr(), lb.data_ptr(), _stream(params))
+    return ub, lb
+
+
+# ---------------------------------------------------------------------------
+# K4: per-node min distances (csrc/nn_min_d2.cu, no index)
+# ---------------------------------------------------------------------------
+
+
+def min_d2_nodes_plain(srcT, wm, params):
+    """Plain version of K4 (``mxu.py:361``): ``d2 [B, Np]``."""
+    return torch.clamp(_min_d2_plain(*_transform(params, srcT), wm), min=0.0)
+
+
+def min_d2_nodes(srcT, wm, params):
+    """Per-node exact min squared distances ``d2 [B, Np]`` for the queries
+    ``R_b·p + t_b`` (``mxu.py:361``): K1's kernel without the index."""
+    if not _route("min_d2_nodes", srcT, wm, params):
+        return min_d2_nodes_plain(srcT, wm, params)
+    B, Np, Mp = params.shape[0], srcT.shape[1], wm.shape[0]
+    _expect("min_d2_nodes", srcT, (8, Np))
+    _expect("min_d2_nodes", wm, (Mp, 8))
+    _expect("min_d2_nodes", params, (B, 16))
+    d2 = torch.empty((B, Np), dtype=torch.float32, device=srcT.device)
+    if B == 0:
+        return d2
+    _launch("min_d2_nodes", kernels.lib().goicp_nn_min_d2,
+            params.data_ptr(), B, srcT.data_ptr(), Np, wm.data_ptr(), Mp,
+            d2.data_ptr(), None, _stream(srcT))
+    return d2
+
+
+# ---------------------------------------------------------------------------
+# K5: screened trimmed bounds (csrc/bounds_trimmed.cu)
+# ---------------------------------------------------------------------------
+
+
+def bounds_nodes_trimmed_plain(srcT_ext, wm, params, *, h: int, drop: int,
+                               with_blocks: bool = False):
+    """Plain version of K5 (``mxu.py:632``): clamped-sum screen over point
+    blocks of ``_pick_tile(Np, 384)``, exact bisection-trimmed sums for the
+    survivors, ``(1e30, Σl̃ − drop·τ)`` for screened nodes.
+    ``with_blocks`` also returns the point blocks each node ran."""
+    Np = srcT_ext.shape[1]
+    d_hi, c = _point_terms(
+        _min_d2_plain(*_transform(params, srcT_ext), wm), params[:, 14:15],
+        params[:, 12:13], srcT_ext[3][None], params[:, 13:14],
     )
-    kernels.check(err, "bounds_nodes")
-    launches["bounds_nodes"] += 1
+    pv = srcT_ext[4][None]
+    lt = c * c
+    thresh, tau = params[:, 15], params[:, 16]
+    (acc,), blocks = _scan(
+        [_block_sums(torch.minimum(lt, tau[:, None]) * pv, _pick_tile(Np, TQB))],
+        thresh, group=False,
+    )
+    ub = trimmed_sum_bisect(_staged(d_hi * d_hi, pv), h, upper=True)
+    lb = trimmed_sum_bisect(_staged(lt, pv), h, upper=False)
+    screened = acc >= thresh
+    out = (torch.where(screened, torch.full_like(ub, _SENTINEL), ub),
+           torch.where(screened, acc - drop * tau, lb))
+    return (*out, blocks) if with_blocks else out
+
+
+def bounds_nodes_trimmed(srcT_ext, wm, params, *, h: int, drop: int):
+    """Fused screened TRIMMED bounds for singleton nodes: ``(ub, lb) [B]``
+    (``mxu.py:777``).  The kernel's ``[2, Np]`` scratch lives in shared
+    memory; a source too large for it (Np above ~27,000) raises."""
+    if not _route("bounds_nodes_trimmed", srcT_ext, wm, params):
+        return bounds_nodes_trimmed_plain(srcT_ext, wm, params, h=h, drop=drop)
+    B, Np, Mp = params.shape[0], srcT_ext.shape[1], wm.shape[0]
+    _expect("bounds_nodes_trimmed", srcT_ext, (8, Np))
+    _expect("bounds_nodes_trimmed", wm, (Mp, 8))
+    _expect("bounds_nodes_trimmed", params, (B, 24))
+    ub = torch.empty((B,), dtype=torch.float32, device=params.device)
+    lb = torch.empty_like(ub)
+    if B == 0:
+        return ub, lb
+    _launch("bounds_nodes_trimmed", kernels.lib().goicp_bounds_nodes_trimmed,
+            params.data_ptr(), B, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
+            _pick_tile(Np, TQB), int(h), int(drop),
+            ub.data_ptr(), lb.data_ptr(), _stream(params))
+    return ub, lb
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: screened grouped bounds, trimmed and untrimmed
+# (csrc/bounds_trimmed_grouped.cu, csrc/bounds_grouped.cu)
+# ---------------------------------------------------------------------------
+
+
+def _grouped_terms(srcT_ext, wm, gparams):
+    """Per sibling ``(d_hi, c)``, ``[G, 8, Np]`` each, from K3's separable
+    distances; ``gparams [G,64]`` (af 41, γt 42-49, slack 50)."""
+    G, Np = gparams.shape[0], srcT_ext.shape[1]
+    d2 = min_d2_groups_plain(srcT_ext, wm, gparams).reshape(G, 8, Np)
+    return _point_terms(d2, gparams[:, 50, None, None], gparams[:, 41, None, None],
+                        srcT_ext[3], gparams[:, 42:50, None])
+
+
+def bounds_groups_trimmed_plain(srcT_ext, wm, gparams, *, h: int, drop: int,
+                                with_blocks: bool = False):
+    """Plain version of K6 (``mxu.py:787``): K5 per sibling, with the
+    screen at group level (every sibling's clamped sum crossed).
+    ``with_blocks`` also returns the point blocks each group ran."""
+    G, Np = gparams.shape[0], srcT_ext.shape[1]
+    d_hi, c = _grouped_terms(srcT_ext, wm, gparams)
+    pv = srcT_ext[4]
+    lt = c * c
+    thresh, tau = gparams[:, 51], gparams[:, 52]
+    (acc,), blocks = _scan(
+        [_block_sums(torch.minimum(lt, tau[:, None, None]) * pv, _pick_tile(Np, TQB))],
+        thresh, group=True,
+    )
+    ub = trimmed_sum_bisect(_staged(d_hi * d_hi, pv).reshape(8 * G, Np), h, upper=True)
+    lb = trimmed_sum_bisect(_staged(lt, pv).reshape(8 * G, Np), h, upper=False)
+    screened = (acc.amin(-1) >= thresh).repeat_interleave(8)
+    out = (torch.where(screened, torch.full_like(ub, _SENTINEL), ub),
+           torch.where(screened, (acc - drop * tau[:, None]).reshape(-1), lb))
+    return (*out, blocks) if with_blocks else out
+
+
+def bounds_groups_trimmed(srcT_ext, wm, gparams, *, h: int, drop: int):
+    """Fused screened TRIMMED bounds for 8-sibling groups: ``(ub, lb)
+    [8G]`` in group-major order (``mxu.py:963``)."""
+    if not _route("bounds_groups_trimmed", srcT_ext, wm, gparams):
+        return bounds_groups_trimmed_plain(srcT_ext, wm, gparams, h=h, drop=drop)
+    G, Np, Mp = gparams.shape[0], srcT_ext.shape[1], wm.shape[0]
+    _expect("bounds_groups_trimmed", srcT_ext, (8, Np))
+    _expect("bounds_groups_trimmed", wm, (Mp, 8))
+    _expect("bounds_groups_trimmed", gparams, (G, 64))
+    ub = torch.empty((8 * G,), dtype=torch.float32, device=gparams.device)
+    lb = torch.empty_like(ub)
+    if G == 0:
+        return ub, lb
+    lib = kernels.lib()
+    # None: the [16, Np] scratch fits in shared memory; else a global buffer
+    gscr = (None if lib.goicp_bounds_groups_trimmed_smem(Np)
+            else torch.empty((G, 16, Np), dtype=torch.float32, device=gparams.device))
+    _launch("bounds_groups_trimmed", lib.goicp_bounds_groups_trimmed,
+            gparams.data_ptr(), G, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
+            _pick_tile(Np, TQB), int(h), int(drop),
+            None if gscr is None else gscr.data_ptr(),
+            ub.data_ptr(), lb.data_ptr(), _stream(gparams))
+    return ub, lb
+
+
+def bounds_groups_plain(srcT_ext, wm, gparams, with_blocks: bool = False):
+    """Plain version of K7 (``mxu.py:502``): ``(ub, lb) [8G]``;
+    ``with_blocks`` also returns the point blocks each group ran."""
+    Np = srcT_ext.shape[1]
+    tq = _pick_tile(Np, TQB)
+    d_hi, c = _grouped_terms(srcT_ext, wm, gparams)
+    pv = srcT_ext[4]
+    ub, lb, blocks = screen_scan(_block_sums((d_hi * d_hi) * pv, tq),
+                                 _block_sums((c * c) * pv, tq), gparams[:, 51], group=True)
+    out = (ub.reshape(-1), lb.reshape(-1))
+    return (*out, blocks) if with_blocks else out
+
+
+def bounds_groups(srcT_ext, wm, gparams):
+    """Fused screened bounds for 8-sibling groups: ``(ub, lb) [8G]``
+    (``mxu.py:1019``)."""
+    if not _route("bounds_groups", srcT_ext, wm, gparams):
+        return bounds_groups_plain(srcT_ext, wm, gparams)
+    G, Np, Mp = gparams.shape[0], srcT_ext.shape[1], wm.shape[0]
+    _expect("bounds_groups", srcT_ext, (8, Np))
+    _expect("bounds_groups", wm, (Mp, 8))
+    _expect("bounds_groups", gparams, (G, 64))
+    ub = torch.empty((8 * G,), dtype=torch.float32, device=gparams.device)
+    lb = torch.empty_like(ub)
+    if G == 0:
+        return ub, lb
+    _launch("bounds_groups", kernels.lib().goicp_bounds_groups,
+            gparams.data_ptr(), G, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
+            _pick_tile(Np, TQB), ub.data_ptr(), lb.data_ptr(), _stream(gparams))
     return ub, lb

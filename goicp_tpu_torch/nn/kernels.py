@@ -8,7 +8,9 @@ source never loads a stale library.  Nothing here runs at import.
 
 The C entry points launch on the stream they are given and return
 ``cudaGetLastError()``; the wrappers in :mod:`goicp_tpu_torch.nn.fused`
-raise when it is not 0.
+raise when it is not 0.  K6 also exports ``*_smem(Np)``, which says
+whether its scratch fits in shared memory (else the wrapper passes a
+global buffer).
 """
 
 from __future__ import annotations
@@ -97,6 +99,17 @@ def _bind(lib):
     lib.goicp_min_d2_grouped.argtypes = [_vp, _i, _vp, _i, _vp, _i, _vp, _vp]
     lib.goicp_bounds_nodes.restype = _i
     lib.goicp_bounds_nodes.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _vp, _vp, _vp]
+    lib.goicp_bounds_groups.restype = _i
+    lib.goicp_bounds_groups.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _vp, _vp, _vp]
+    # rows, B/G, srcT, Np, wm, Mp, tq, h, drop, [global scratch,] ub, lb, stream
+    lib.goicp_bounds_nodes_trimmed.restype = _i
+    lib.goicp_bounds_nodes_trimmed.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i,
+                                               _vp, _vp, _vp]
+    lib.goicp_bounds_groups_trimmed.restype = _i
+    lib.goicp_bounds_groups_trimmed.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i,
+                                                _vp, _vp, _vp, _vp]
+    lib.goicp_bounds_groups_trimmed_smem.restype = _i
+    lib.goicp_bounds_groups_trimmed_smem.argtypes = [_i]
     return lib
 
 

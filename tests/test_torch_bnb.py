@@ -167,9 +167,20 @@ def test_params_from_dict_round_trips():
     dict(icp_exact_max=50),
 ])
 def test_out_of_slice_options_raise(clouds, kw):
+    """Options outside the port raise, naming the ROADMAP item.  The trimmed
+    path and unscreened R-rounds (K4) are in the port now: those two cases
+    must solve on the CPU path instead."""
     src, tgt, _, _ = clouds
+    if kw in IN_SLICE:
+        res = register(src, tgt, BnbParams(mse_threshold=1e-5, max_rounds=3, se3_pop=64, **kw),
+                       device="cpu")
+        assert res.rounds > 0 and np.isfinite(res.sse) and res.rot_nodes > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         register(src, tgt, BnbParams(**kw), device="cpu")
+
+
+IN_SLICE = (dict(trim_fraction=0.1), dict(bound_backend="mxu", screen=False))
 
 
 def test_default_device_is_cuda(clouds, monkeypatch):

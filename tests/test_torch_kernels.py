@@ -4,11 +4,13 @@ Marked ``gpu``: skipped without a CUDA device.  On the card, run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py`` (the
 repo's conftest imports jax, which that machine does not have).
 
-Expected agreement: K1 and K3 round exactly as their plain versions (the
-kernels use non-contracting intrinsics), so indices and distances are
-equal; K2's block sums are reduced in another order, so ub and lb agree to
-rtol 1e-5 / atol 1e-5, and the screened sets may differ only for nodes whose
-lb lies within that tolerance of the threshold.
+Expected agreement: K1, K3 and K4 round exactly as their plain versions
+(the kernels use non-contracting intrinsics), so indices and distances are
+equal; K2, K5, K6 and K7 reduce their sums in another order, so ub and lb
+agree to rtol 1e-5 / atol 1e-5, and the screened sets may differ only for
+nodes whose lb lies within that tolerance of the threshold.  The trimmed
+kernels' per-point terms are bit-equal, so their bisection thresholds are
+too; only the final sums differ by order.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from goicp_tpu_torch.geo.rotation import axis_angle_rotation
 from goicp_tpu_torch.nn import fused
+from goicp_tpu_torch.nn.agree import screened_agree, trim_levels
 from goicp_tpu_torch.nn.brute import nearest_neighbor
 
 pytestmark = pytest.mark.gpu
@@ -82,12 +85,105 @@ def test_k2_bounds_nodes(cuda, B, n, nt, screen):
     params = fused.pack_params_bounds(R, t, af, gt, 0.0, thresh)
     ub, lb = fused.bounds_nodes(srcT, wm, params)
     torch.cuda.synchronize()
-    ub_p, lb_p = fused.bounds_nodes_plain(srcT, wm, params)
-    scr, scr_p = lb >= thresh, lb_p >= thresh
-    differ = scr != scr_p
-    assert torch.all(torch.abs(lb_p[differ] - thresh) <= 1e-5 * abs(thresh) + 1e-5)
-    same = ~differ
-    torch.testing.assert_close(lb[same], lb_p[same], rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(ub[same], ub_p[same], rtol=1e-5, atol=1e-5)
+    _agree_screened(ub, lb, *fused.bounds_nodes_plain(srcT, wm, params), thresh, thresh,
+                    screen=screen)
+
+
+def _agree_screened(ub, lb, ub_p, lb_p, thresh, scale, group=1, screen=False):
+    """``nn/agree.py``'s rule (the one ``chip_smoke.py`` applies); a
+    screened case must screen some units of ``group`` and not others."""
+    ok, err, nscr, differ = screened_agree(ub, lb, ub_p, lb_p, thresh, scale, group)
+    assert ok, f"max |err| {err}, screened-set differences {differ}"
     if screen:
-        assert scr.any() and (~scr).any()
+        assert 0 < nscr < ub_p.numel() // group
+
+
+@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (21080, 1518, 1797)])
+def test_k4_min_d2_nodes(cuda, B, n, nt):
+    rng = np.random.default_rng(4)
+    src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
+    R, t = _nodes(rng, B, cuda)
+    srcT, wm, params = fused.pack_sources(src), fused.pack_targets(tgt), fused.pack_params(R, t)
+    got = fused.min_d2_nodes(srcT, wm, params)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused.min_d2_nodes_plain(srcT, wm, params))
+
+
+@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (2048, 1518, 1797)])
+@pytest.mark.parametrize("screen", [False, True])
+def test_k5_bounds_nodes_trimmed(cuda, B, n, nt, screen):
+    rng = np.random.default_rng(5)
+    src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
+    R, t = _nodes(rng, B, cuda)
+    t[::2] += 1.5                       # every other node far off: it screens
+    norms = torch.linalg.vector_norm(src, dim=1)
+    af = torch.as_tensor(rng.uniform(0, 0.3, B).astype(np.float32), device=cuda)
+    gt = torch.as_tensor(rng.uniform(0, 0.05, B).astype(np.float32), device=cuda)
+    srcT, wm = fused.pack_sources_ext(src, norms), fused.pack_targets(tgt)
+    h = int(round(0.75 * n))
+    drop = n - h
+    thresh, te, tau = 1e30, 1e30, 1e30
+    if screen:
+        _, lb = fused.bounds_nodes_trimmed_plain(
+            srcT, wm, fused.pack_params_bounds_trimmed(R, t, af, gt, 0.0, 1e30, 1e30),
+            h=h, drop=drop)
+        thresh, te, tau = trim_levels(lb, h, drop)
+    params = fused.pack_params_bounds_trimmed(R, t, af, gt, 0.0, te, tau)
+    ub, lb = fused.bounds_nodes_trimmed(srcT, wm, params, h=h, drop=drop)
+    torch.cuda.synchronize()
+    ub_p, lb_p = fused.bounds_nodes_trimmed_plain(srcT, wm, params, h=h, drop=drop)
+    _agree_screened(ub, lb, ub_p, lb_p, thresh, te, screen=screen)
+
+
+def _groups(rng, G, n, nt, dev):
+    src, tgt = _cloud(rng, n, dev), _cloud(rng, nt, dev)
+    R, _ = _nodes(rng, G, dev)
+    t8 = rng.uniform(-0.3, 0.3, (G, 8, 3)).astype(np.float32)
+    t8[::2] += 1.5                      # every other group far off: it screens
+    t8 = torch.as_tensor(t8, device=dev)
+    af = torch.as_tensor(rng.uniform(0, 0.3, G).astype(np.float32), device=dev)
+    gt8 = torch.as_tensor(rng.uniform(0, 0.05, (G, 8)).astype(np.float32), device=dev)
+    srcT = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+    return srcT, fused.pack_targets(tgt), R, t8, af, gt8
+
+
+# (5, 4096, 700): Np ≥ 4,096 puts K6's [16, Np] scratch in global memory
+@pytest.mark.parametrize("G,n,nt", [(5, 300, 700), (263, 1518, 1797), (5, 4096, 700)])
+@pytest.mark.parametrize("screen", [False, True])
+def test_k6_bounds_groups_trimmed(cuda, G, n, nt, screen):
+    from goicp_tpu_torch.nn import kernels
+
+    rng = np.random.default_rng(6)
+    srcT, wm, R, t8, af, gt8 = _groups(rng, G, n, nt, cuda)
+    Np = srcT.shape[1]
+    assert bool(kernels.lib().goicp_bounds_groups_trimmed_smem(Np)) == (Np < 4096)
+    h = int(round(0.75 * n))
+    drop = n - h
+    thresh, te, tau = 1e30, 1e30, 1e30
+    if screen:
+        _, lb = fused.bounds_groups_trimmed_plain(
+            srcT, wm, fused.pack_group_params_bounds_trimmed(R, t8, af, gt8, 0.0, 1e30, 1e30),
+            h=h, drop=drop)
+        thresh, te, tau = trim_levels(lb, h, drop)
+    params = fused.pack_group_params_bounds_trimmed(R, t8, af, gt8, 0.0, te, tau)
+    ub, lb = fused.bounds_groups_trimmed(srcT, wm, params, h=h, drop=drop)
+    torch.cuda.synchronize()
+    ub_p, lb_p = fused.bounds_groups_trimmed_plain(srcT, wm, params, h=h, drop=drop)
+    _agree_screened(ub, lb, ub_p, lb_p, thresh, te, group=8, screen=screen)
+
+
+@pytest.mark.parametrize("G,n,nt", [(5, 300, 700), (263, 1518, 1797)])
+@pytest.mark.parametrize("screen", [False, True])
+def test_k7_bounds_groups(cuda, G, n, nt, screen):
+    rng = np.random.default_rng(7)
+    srcT, wm, R, t8, af, gt8 = _groups(rng, G, n, nt, cuda)
+    thresh = 1e30
+    if screen:
+        _, lb = fused.bounds_groups_plain(
+            srcT, wm, fused.pack_group_params_bounds(R, t8, af, gt8, 0.0, 1e30))
+        thresh = float(lb.reshape(G, 8).amin(1).median())
+    params = fused.pack_group_params_bounds(R, t8, af, gt8, 0.0, thresh)
+    ub, lb = fused.bounds_groups(srcT, wm, params)
+    torch.cuda.synchronize()
+    ub_p, lb_p = fused.bounds_groups_plain(srcT, wm, params)
+    _agree_screened(ub, lb, ub_p, lb_p, thresh, thresh, group=8, screen=screen)
