@@ -11,9 +11,12 @@ Phases, each of which fails the run:
 2. building the CUDA kernels from ``goicp_tpu_torch/csrc`` (timed);
 3. each kernel against its plain PyTorch version on the card, on random
    inputs and at the bunny solves' shapes, with kernel, plain, bound and
-   (K1, K3, K4) library times: K1 nearest neighbour; K3 grouped distances;
-   K2 screened bounds and K4 per-node distances at the largest R-round
-   bucket; K5 screened trimmed bounds there too; K6 screened trimmed
+   (K1, K3, K4) library times: K1 nearest neighbour at each of its shapes
+   on the solve's path (in-round refine, coarse and full multistart; device
+   time per call, and on a doubled target cloud whose ties the earlier twin
+   must win); K3 grouped distances; K2 screened bounds and K4 per-node
+   distances at the largest R-round bucket (K4 also on its ring route, above
+   6,144 targets); K5 screened trimmed bounds there too; K6 screened trimmed
    grouped bounds at se3_pop groups and once at Np ≥ 4,096 (its scratch in
    global memory); K7 screened grouped bounds (no solver path calls K7);
 4. a certified solve of the in-repo bunny pair through ``register`` (K1,
@@ -32,7 +35,9 @@ Phases, each of which fails the run:
    30 s budget, once more under ``torch.profiler`` (device activity), for
    the device's busy share of each solve and its device time by kernel.
 
-Each solve's launch counts are reset just before it and read just after.
+Each solve's launch counts are reset just before it and read just after;
+K1's are also counted by (queries, targets), and the ``kernels`` line has a
+K1 row per shape with that shape's launches in the certified solve.
 The last lines are the ``kernels`` JSON line and the device JSON line.
 Details go to ``chiprun_out/chip_smoke.json``.  Without CUDA, or outside the
 repository, it exits non-zero and prints no result.
@@ -84,6 +89,35 @@ def timed_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int, clock_hz: float) -> float:
+    """Device time per call of ``fn()`` in ms, for calls too short to time
+    one by one: a ``torch.cuda._sleep`` holds the stream while the host
+    queues up to ``reps`` calls between two events, so the host's launch
+    cost stays out of the number (the gaps between the queued kernels stay
+    in).  Until the queueing ends inside the sleep, the sleep doubles and
+    the calls halve (a stream queues about a thousand launches at most)."""
+    import torch
+
+    fn()
+    sleep_s = 2e-3
+    for _ in range(10):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(sleep_s * clock_hz))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = time.perf_counter() - t0
+        b.synchronize()
+        if queued < sleep_s:
+            return a.elapsed_time(b) / reps
+        sleep_s, reps = 2 * sleep_s, max(1, reps // 2)
+    raise RuntimeError("device_ms: the host could not queue the calls ahead of the card")
 
 
 class Checks:
@@ -149,37 +183,67 @@ def _rec(name, source, replaces, err, ms, plain, b, by, lib, shape, **extra):
                 library_ms=lib, shape=shape, **extra)
 
 
+def k1_shapes(N: int, NT: int):
+    """K1's shapes on the solve's path: (key, poses, source points, target
+    points).  The in-round refine runs refine_top_k = 8 poses on the whole
+    source; the multistart first runs its 64 seeds on init_coarse_n = 512
+    points of each cloud, then pads its best seeds to icp_cap = 64 poses on
+    the whole clouds."""
+    return (("K1 refine", 8, N, NT), ("K1 coarse", 64, 512, 512), ("K1 multistart", 64, N, NT))
+
+
 def check_k1(chk, dev, S, T, rng, clock_hz):
-    """K1 at the multistart refine shape: icp_cap (64) poses x N queries."""
+    """K1 at each shape of ``k1_shapes``, on random inputs and on the
+    shape's targets twice over (every nearest target has a twin, and the
+    earlier must win); tol 0.  Returns one record per shape."""
     import torch
 
     from goicp_tpu_torch.geo.rotation import axis_angle_rotation
     from goicp_tpu_torch.nn import fused
     from goicp_tpu_torch.nn.brute import nearest_neighbor
 
-    NT = T.shape[0]
-    R64 = axis_angle_rotation(torch.as_tensor(
-        rng.uniform(-0.2, 0.2, (64, 3)).astype(np.float32), device=dev))
-    Q = (S[None] @ R64.transpose(1, 2)).reshape(-1, 3).contiguous()
-    for name, q, t in (
-        ("random 300x700", torch.rand(300, 3, device=dev) - 0.5, torch.rand(700, 3, device=dev) - 0.5),
-        (f"bunny {Q.shape[0]}x{NT}", Q, T),
-    ):
-        d2, idx = fused.nearest_neighbor_mxu(q, t)
+    def agree(name, q, t, d2, idx):
         torch.cuda.synchronize()
         d2_p, idx_p = nearest_neighbor(q, t)
         err = float((d2 - d2_p).abs().max())
-        chk.expect(bool(torch.equal(idx, idx_p)) and err == 0.0,
-                   f"K1 {name}: indices equal, max |d2 err| {err:.3g} (tol 0: same rounding)")
-    ms = timed_ms(lambda: fused.nearest_neighbor_mxu(Q, T), 20)
-    plain = timed_ms(lambda: nearest_neighbor(Q, T), 5)
-    lib = timed_ms(lambda: torch.cdist(Q, T).min(dim=1), 20)
-    b, by = bound_ms(4.0 * (3 * Q.shape[0] + 3 * NT + 2 * Q.shape[0]),
-                     7.0 * Q.shape[0] * NT, clock_hz)
-    return _rec("K1 nearest_neighbor_mxu (exact NN + argmin)", "goicp_tpu_torch/csrc/nn_min_d2.cu",
-                "goicp_tpu/nn/mxu.py:152", err, ms, plain, b, by, lib,
-                f"{Q.shape[0]} queries x {NT} targets",
-                library_call="torch.cdist + min (two calls)")
+        won = bool(torch.equal(d2, fused._sq3(q - t.index_select(0, idx))))
+        chk.expect(bool(torch.equal(idx, idx_p)) and bool(torch.equal(d2, d2_p)) and won,
+                   f"K1 {name}: indices equal, max |d2 err| {err:.3g}, d2 = |q - m_idx|^2 "
+                   f"{won} (tol 0: same rounding, bit-equal)")
+        return err
+
+    q_r, t_r = torch.rand(300, 3, device=dev) - 0.5, torch.rand(700, 3, device=dev) - 0.5
+    agree("random 300x700", q_r, t_r, *fused.nearest_neighbor_mxu(q_r, t_r))
+    recs = {}
+    for key, poses, n, nt in k1_shapes(S.shape[0], T.shape[0]):
+        Sx = S[torch.as_tensor(np.sort(rng.choice(S.shape[0], n, replace=False)), device=dev)]
+        Tx = T[torch.as_tensor(np.sort(rng.choice(T.shape[0], nt, replace=False)), device=dev)]
+        Rp = axis_angle_rotation(torch.as_tensor(
+            rng.uniform(-0.2, 0.2, (poses, 3)).astype(np.float32), device=dev))
+        tp = torch.as_tensor(rng.uniform(-0.02, 0.02, (poses, 3)).astype(np.float32), device=dev)
+        Q = (Sx[None] @ Rp.transpose(1, 2) + tp[:, None]).reshape(-1, 3).contiguous()
+        t4 = fused.pack_nn_targets(Tx)
+        name = f"{key[3:]} {poses}x{n} queries x {nt} targets"
+        err = agree(name, Q, Tx, *fused.nearest_neighbor_mxu(Q, Tx, packed=t4))
+        T2 = torch.cat([Tx, Tx])
+        d2, idx = fused.nearest_neighbor_mxu(Q, T2)
+        agree(f"{key[3:]} against the doubled targets", Q, T2, d2, idx)
+        chk.expect(bool((idx < nt).all()), f"K1 {key[3:]}: the earlier twin wins every tie")
+        route = fused.nn_route(Q.shape[0], t4.shape[0], fused._sm_count(Q.device.index))
+        ms = device_ms(lambda: fused.nearest_neighbor_mxu(Q, Tx, packed=t4), 100, clock_hz)
+        call = timed_ms(lambda: fused.nearest_neighbor_mxu(Q, Tx, packed=t4), 20)
+        plain = device_ms(lambda: nearest_neighbor(Q, Tx), 5, clock_hz)
+        lib = device_ms(lambda: torch.cdist(Q, Tx).min(dim=1), 20, clock_hz)
+        nq = Q.shape[0]
+        b, by = bound_ms(4.0 * (3 * nq + 3 * nt + 2 * nq), 7.0 * nq * nt, clock_hz)
+        recs[key] = _rec(
+            f"{key} nearest_neighbor_mxu (exact NN + argmin), {poses} x {n} queries x {nt} targets",
+            "goicp_tpu_torch/csrc/nn_min_d2.cu", "goicp_tpu/nn/mxu.py:152", err, ms, plain, b, by,
+            lib, f"{nq} queries x {nt} targets", library_call="torch.cdist + min (two calls)",
+            shape_key=[nq, nt], launch_route=dict(splits=route[0], queries_per_thread=route[1]),
+            call_ms=call, timing="device time per call (device_ms), targets packed once")
+        report(key, recs[key])
+    return recs
 
 
 def check_k3(chk, dev, S, T, rng, clock_hz, G):
@@ -322,11 +386,27 @@ def check_k4(chk, dev, S, T, rng, clock_hz, B):
     lib = library_min_ms(Q, T)
     del Q
     b, by = bound_ms(4.0 * (16 * B + 3 * N + 3 * NT + B * srcT.shape[1]), 7.0 * B * N * NT, clock_hz)
+    # the ring route: 20,000 targets do not stay resident in shared memory
+    Bg, NTg = 64, 20000
+    wm_g = fused.pack_targets(torch.rand(NTg, 3, device=dev) * 2.0 - 1.0)
+    p_g = params[:Bg].contiguous()
+    got = fused.min_d2_nodes(srcT, wm_g, p_g)
+    torch.cuda.synchronize()
+    ref = fused.min_d2_nodes_plain(srcT, wm_g, p_g)
+    chk.expect(bool(torch.equal(got, ref)),
+               f"K4 ring route {Bg} nodes {N}x{NTg}: max |d2 err| "
+               f"{float((got - ref).abs().max()):.3g} (tol 0: bit-equal)")
+    bg, byg = bound_ms(4.0 * (16 * Bg + 3 * N + 3 * NTg + Bg * srcT.shape[1]),
+                       7.0 * Bg * N * NTg, clock_hz)
+    ring = dict(ms=timed_ms(lambda: fused.min_d2_nodes(srcT, wm_g, p_g), 5),
+                plain_ms=timed_ms(lambda: fused.min_d2_nodes_plain(srcT, wm_g, p_g), 2),
+                bound_ms=bg, bound_by=byg, shape=f"{Bg} nodes x {N} points x {NTg} targets")
+    report("K4 ring route", dict(ring, library_ms=None))
     return _rec("K4 min_d2_nodes (per-node distances, no index)", "goicp_tpu_torch/csrc/nn_min_d2.cu",
                 "goicp_tpu/nn/mxu.py:176 (via min_d2_nodes :361)", err, ms, plain, b, by, lib,
                 f"{B} nodes x {N} points x {NT} targets",
                 library_call=f"torch.cdist + amin over the {B * N} transformed queries, "
-                             "in chunks of 2^19")
+                             "in chunks of 2^19", ring_route=ring)
 
 
 def bisect_ops(rows: int, Np: int) -> float:
@@ -532,8 +612,7 @@ def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop, h_trim, big_src):
     rng = np.random.default_rng(7)
     S = torch.as_tensor(src, device=dev)
     T = torch.as_tensor(tgt, device=dev)
-    rec = {"K1": check_k1(chk, dev, S, T, rng, clock_hz)}
-    report("K1", rec["K1"])
+    rec = check_k1(chk, dev, S, T, rng, clock_hz)
     rec["K3"] = check_k3(chk, dev, S, T, rng, clock_hz, se3_pop)
     report("K3", rec["K3"])
     rec["K2"] = check_k2(chk, dev, S, T, rng, clock_hz, 8 * se3_pop)
@@ -617,6 +696,7 @@ def solve_bunny(chk, dev, label, src, tgt, R_gt, t_gt, expect, trim: float = 0.0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fused.launches)
+    k1_shape_launches = {f"{q}x{t}": n for (q, t), n in sorted(fused.nn_launch_shapes.items())}
     R, t = np.asarray(res.transform.R), np.asarray(res.transform.t)
     cos = np.clip((np.trace(R.T @ R_gt) - 1.0) / 2.0, -1.0, 1.0)
     rot_err = float(np.degrees(np.arccos(cos)))
@@ -630,12 +710,14 @@ def solve_bunny(chk, dev, label, src, tgt, R_gt, t_gt, expect, trim: float = 0.0
         converged=bool(res.converged), gap=res.gap, sse=res.sse, mse=res.mse,
         mse_true=mse_true, mse_threshold=params.mse_threshold, wall_s=wall,
         rot_err_deg=rot_err, t_err=t_err, t_err_over_extent=t_err / extent,
-        icp_iters=res.icp_iters, launches=launches, timers=timers,
+        icp_iters=res.icp_iters, launches=launches, k1_launches_by_shape=k1_shape_launches,
+        timers=timers,
         counters={k: float(v) for k, v in res.metrics.counters.items()},
     )
     print(f"{label}: " + json.dumps({k: info[k] for k in (
         "rounds", "nodes", "nodes_per_s", "converged", "gap", "mse", "wall_s",
-        "rot_err_deg", "t_err", "t_err_over_extent", "launches")}), flush=True)
+        "rot_err_deg", "t_err", "t_err_over_extent", "launches", "k1_launches_by_shape")}),
+          flush=True)
     for k in expect:
         chk.expect(launches[k] > 0, f"{label} launched {k} {launches[k]} times")
     chk.expect(res.rot_nodes > 0, f"{label} evaluated {res.rot_nodes} nodes")
@@ -754,9 +836,12 @@ def profile_solve(chk, dev, label, src, tgt, R_gt, t_gt, trim: float = 0.0,
     return info
 
 
-# (key, launch counter, the phase whose solve is the kernel's main path)
+# (key, launch counter, the phase whose solve is the kernel's main path);
+# K1 has a row per shape (k1_shapes) and counts that shape's launches
 KERNELS = (
-    ("K1", "nearest_neighbor_mxu", "solve"),
+    ("K1 refine", "nearest_neighbor_mxu", "solve"),
+    ("K1 coarse", "nearest_neighbor_mxu", "solve"),
+    ("K1 multistart", "nearest_neighbor_mxu", "solve"),
     ("K2", "bounds_nodes", "solve"),
     ("K3", "min_d2_groups", "solve"),
     ("K4", "min_d2_nodes", "trimmed solve"),
@@ -824,15 +909,23 @@ def main() -> int:
     kernels_line = []
     for key, counter, phase in KERNELS:
         r = dict(recs[key])
+        shape = r.pop("shape_key", None)
+
+        def count(info):
+            if shape is None:
+                return info["launches"][counter]
+            return info["k1_launches_by_shape"].get(f"{shape[0]}x{shape[1]}", 0)
+
         if phase is None:
             r["launches"] = r.pop("check_launches")
             r["launches_from"] = ("the phase 3 check only: no solver path calls it "
                                   "(goicp_tpu/bnb/se3_eval.py:436)")
         else:
-            r["launches"] = phases[phase]["launches"][counter]
-            r["launches_from"] = phase
-        r["launches_by_phase"] = {k: v["launches"][counter] for k, v in phases.items()}
-        r["check"] = "fail" if any(f.startswith(key) for f in chk.failed) else "pass"
+            r["launches"] = count(phases[phase])
+            r["launches_from"] = phase if shape is None else f"{phase}, at this shape"
+        r["launches_by_phase"] = {k: count(v) for k, v in phases.items()}
+        prefix = key.split()[0] + " "
+        r["check"] = "fail" if any(f.startswith(prefix) for f in chk.failed) else "pass"
         kernels_line.append(r)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

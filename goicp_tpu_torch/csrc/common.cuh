@@ -35,6 +35,22 @@ __device__ __forceinline__ float dist2(float4 w, float qx, float qy, float qz) {
   return fadd(fadd(fmul(dx, dx), fmul(dy, dy)), fmul(dz, dz));
 }
 
+// Asynchronous 16-byte copy from global to shared memory (cp.async, L2
+// only); both addresses 16-byte aligned.  A group of copies is committed
+// with cp_async_commit and awaited with cp_async_wait<N> (all but the N
+// newest groups complete), then a __syncthreads() makes them visible.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Copy targets [m0, m0+n) of wm [Mp, 8] (cols m_x, m_y, m_z, ...) into
 // shared memory as float4 (x, y, z, 0), one target per thread per pass.
 __device__ __forceinline__ void stage_targets(float4* tile, const float* wm,

@@ -1,94 +1,336 @@
-// K1: exact nearest neighbour (min |q - m|² and its argmin) on Hopper.
+// K1 and K4: exact minimum squared distances to a target cloud on Hopper.
 //
-// Replaces the TPU kernel goicp_tpu/nn/mxu.py:_min_d2_kernel (called through
-// _min_d2_padded with want_idx=True, from nearest_neighbor_mxu): for every
-// query R_b·p + t_b, the minimum over all targets of |q - m|² in the "diff"
-// form, and the index of the EARLIEST target reaching it (strict <, as the
-// TPU kernel's cross-chunk merge at mxu.py:131-135).
+// Replace the TPU kernel goicp_tpu/nn/mxu.py:_min_d2_kernel (called through
+// _min_d2_padded, "diff" form), in its two uses:
+//   K4  min_d2_nodes_kernel (want_idx=False, from min_d2_nodes): for B node
+//       poses (up to 8·se3_pop = 21,080 at the bunny's shapes) over the
+//       source srcT [8, Np], d2[b, i] = min over targets of |m - (R_b p_i +
+//       t_b)|², clamped at 0: the per-point distances of the R-rounds of the
+//       "mxu" backend.
+//   K1  nn_query_kernel (want_idx=True, from nearest_neighbor_mxu): for Q
+//       query points q [Q, 3], the earliest target index reaching the
+//       minimum (strict <, as the TPU kernel's cross-chunk merge at
+//       mxu.py:131-135), clamped to Nt - 1, and d2 = |q - m_idx|², which is
+//       the minimum itself bit for bit (recomputed from the target only when
+//       clamped or not finite): every ICP iteration, 8 poses x 1,518 points
+//       in each in-round refine of the bunny solve.
 //
-// K4 is the same kernel with a null index (want_idx=False, from
-// min_d2_nodes): B node poses (up to 8·se3_pop = 21,080 at the bunny's
-// shapes) over the whole source cloud, the per-point distances that the
-// R-rounds of the "mxu" backend deflate and (trimmed-)sum.  Its grid is
-// Np/128 x B blocks, so it fills the card; bound by arithmetic as above.
+// What bounds them on an H100: issue slots.  A (query, target) pair costs 3
+// subtractions, 3 multiplies and 2 adds in the exact ((dx²+dy²)+dz²) order
+// of the plain versions (non-contracting __f*_rn, so results are bit-equal)
+// and one fminf: 9 slots, against the 7 an FMA-contracted kernel would issue
+// (the bound chip_smoke.py reports).  Device memory sees each input once.
 //
-// What bounds it on an H100: arithmetic.  Each (query, target) pair costs
-// 3 subtractions, 3 multiplies, 2 adds and a compare-select, and the targets
-// are read from shared memory as broadcasts, so device memory sees each
-// input once.  Design: one thread per query keeps its running (min, argmin)
-// in registers; the block stages the targets through shared memory, 1024 at
-// a time as float4, and every thread walks the staged tile in order.  At the
-// ICP shapes (8-64 poses x ~1.5k points against ~2k targets) the grid is
-// 100-760 blocks of 128 threads, so the small in-round refines leave SMs
-// idle; more work per thread and a split over targets are later work.
+// Design, shared by both (min_d2_body):
+// - Register blocking.  A thread keeps QR queries in registers and reads
+//   each target once from shared memory as a broadcast float4, so a pair
+//   costs 9 + 1/QR slots.  K4 (QR = 4) keeps only running minima (fminf).
+// - The index at fminf's price.  K1 takes the minimum over a chunk of 8
+//   targets, then one compare-select per chunk keeps the earliest chunk
+//   holding the running minimum; at the end it finds the first target of
+//   that chunk at exactly the minimum (the same arithmetic gives the same
+//   bits).
+// - Target splits for small Q.  A CTA's 8 warps are (8/S) query warps x S
+//   target splits: the S warps of a query group walk disjoint slices of
+//   every target tile and merge (d2, index) through shared memory, the
+//   lower index winning a tie.  nn/fused.py:nn_route picks S and QR: an
+//   in-round refine (12,144 queries) runs S = 8, QR = 1, so its 380 CTAs of
+//   32 queries spread over the 132 SMs; the multistart's larger batches run
+//   S = 4, QR = 4.  A launch as small as a refine's also pays for its
+//   launch, its staging and its merge (PERF.md holds the times).
+// - Persistent CTAs.  The grid is min(work items, SMs x occupancy); a CTA
+//   walks items of (8/S)·32·QR consecutive queries (K4: flat b·Np + i).  Up
+//   to kResidentMax targets (96 KB) are staged once per CTA with cp.async
+//   and stay resident; above that (mxu_max admits 32,768) each item streams
+//   them through a double-buffered ring of kRingTile targets.
+// - A 1-D grid, so any B·Np fits one launch.
+// Targets come as rows of `ld` floats whose first three are x, y, z: K4
+// reads wm [Mp, 8] (ld 8), K1 the [Mp, 4] copy that its caller packs once
+// per target cloud (ld 4), which halves the bytes each CTA stages.
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace goicp {
 
-constexpr int kNnThreads = 128;
-constexpr int kNnTile = 1024;
+constexpr int kNnWarps = 8;
+constexpr int kNnThreads = 32 * kNnWarps;
+constexpr int kChunk = 8;            // targets per min-then-compare step (K1)
+constexpr int kResidentMax = 6144;   // targets resident in shared memory
+constexpr int kRingTile = 2048;      // targets per ring buffer above that
+constexpr int kK4Qr = 4;             // K4's queries per thread
 
-__global__ void __launch_bounds__(kNnThreads)
-nn_min_d2_kernel(const float* __restrict__ params,   // [B, 16]
-                 const float* __restrict__ srcT,     // [8, Np]
-                 int Np,
-                 const float* __restrict__ wm,       // [Mp, 8]
-                 int Mp,
-                 float* __restrict__ d2,             // [B, Np]
-                 int* __restrict__ idx) {            // [B, Np] or null
-  __shared__ float4 tile[kNnTile];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const float* P = params + static_cast<size_t>(b) * 16;
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (i < Np) {
-    px = srcT[i];
-    py = srcT[Np + i];
-    pz = srcT[2 * Np + i];
+// K4's queries: q = R_b·p_i + t_b for the flat index f = b·Np + i.
+struct NodeQueries {
+  const float* params;  // [B, 16]
+  const float* srcT;    // [8, Np]
+  int Np;
+  __device__ __forceinline__ void load(long long f, float& qx, float& qy,
+                                       float& qz) const {
+    const int b = static_cast<int>(f / Np);
+    const int i = static_cast<int>(f - static_cast<long long>(b) * Np);
+    const float* P = params + static_cast<size_t>(b) * 16;
+    const float px = srcT[i], py = srcT[Np + i], pz = srcT[2 * Np + i];
+    qx = fadd(dot3(px, py, pz, P[0], P[1], P[2]), P[9]);
+    qy = fadd(dot3(px, py, pz, P[3], P[4], P[5]), P[10]);
+    qz = fadd(dot3(px, py, pz, P[6], P[7], P[8]), P[11]);
   }
-  const float qx = fadd(dot3(px, py, pz, P[0], P[1], P[2]), P[9]);
-  const float qy = fadd(dot3(px, py, pz, P[3], P[4], P[5]), P[10]);
-  const float qz = fadd(dot3(px, py, pz, P[6], P[7], P[8]), P[11]);
+};
 
-  float best = __int_as_float(0x7f800000);  // +inf
-  int bidx = 0;
-  for (int m0 = 0; m0 < Mp; m0 += kNnTile) {
-    const int n = min(kNnTile, Mp - m0);
-    __syncthreads();
-    stage_targets(tile, wm, m0, n);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float d = dist2(tile[k], qx, qy, qz);
-      if (d < best) {
-        best = d;
-        bidx = m0 + k;
+// K1's queries: the points themselves, [Q, 3].
+struct PointQueries {
+  const float* q;
+  __device__ __forceinline__ void load(long long f, float& qx, float& qy,
+                                       float& qz) const {
+    qx = q[3 * f];
+    qy = q[3 * f + 1];
+    qz = q[3 * f + 2];
+  }
+};
+
+// Stage targets [m0, m0+n) into `tile` as one cp.async group.
+__device__ __forceinline__ void stage_async(float4* tile, const float* tg,
+                                            int ld, int m0, int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x)
+    cp_async16(tile + k, tg + static_cast<size_t>(m0 + k) * ld);
+  cp_async_commit();
+}
+
+// Walk `len` staged targets t[0..len) (global indices g0...) for QR queries.
+// IDX: best[r] is the running minimum and bch[r] the first index of the
+// earliest chunk of 8 that reached it; else only the minimum.
+template <int QR, bool IDX>
+__device__ __forceinline__ void scan(const float4* t, int len, int g0,
+                                     const float (&qx)[QR], const float (&qy)[QR],
+                                     const float (&qz)[QR], float (&best)[QR],
+                                     int (&bch)[QR]) {
+  for (int k = 0; k < len; k += kChunk) {
+    float4 w[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) w[u] = t[k + u];
+#pragma unroll
+    for (int r = 0; r < QR; ++r) {
+      if (IDX) {
+        float c = dist2(w[0], qx[r], qy[r], qz[r]);
+#pragma unroll
+        for (int u = 1; u < kChunk; ++u) c = fminf(c, dist2(w[u], qx[r], qy[r], qz[r]));
+        if (c < best[r]) {
+          best[r] = c;
+          bch[r] = g0 + k;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u)
+          best[r] = fminf(best[r], dist2(w[u], qx[r], qy[r], qz[r]));
       }
     }
   }
-  if (i < Np) {
-    d2[static_cast<size_t>(b) * Np + i] = fmaxf(best, 0.f);
-    if (idx != nullptr) idx[static_cast<size_t>(b) * Np + i] = bidx;
+}
+
+// The first target of chunk c at exactly `best`, from target rows
+// rows[m·step]; 0 when no chunk was taken (every distance NaN or +inf: no
+// strict improvement over +inf).
+__device__ __forceinline__ int first_at(const float4* rows, int step, int c,
+                                        float best, float qx, float qy, float qz) {
+  if (c < 0) return 0;
+  float4 w[kChunk];
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) w[u] = rows[(c + u) * step];
+  int hit = c;  // the chunk's minimum is one of its distances
+#pragma unroll
+  for (int u = kChunk - 1; u >= 0; --u)
+    if (dist2(w[u], qx, qy, qz) == best) hit = c + u;
+  return hit;
+}
+
+// One CTA of either kernel (see the header).  `tile_m` = Mp when the
+// targets stay resident, else kRingTile; `S` target splits divide 8;
+// every tile holds a multiple of 8·S targets.
+template <int QR, bool IDX, class Src>
+__device__ __forceinline__ void min_d2_body(const Src& src, long long nq,
+                                            const float* __restrict__ tg, int ld,
+                                            int Mp, int tile_m, int S, int Nt,
+                                            float* __restrict__ d2,
+                                            int* __restrict__ idx) {
+  extern __shared__ float4 nn_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = warp % S, wq = warp / S;
+  const int per_item = (kNnWarps / S) * 32 * QR;
+  const long long n_items = (nq + per_item - 1) / per_item;
+  const int nt = (Mp + tile_m - 1) / tile_m;
+  float4* buf[2] = {nn_smem, nn_smem + tile_m};
+  float* red_d = reinterpret_cast<float*>(nn_smem + (nt == 1 ? 1 : 2) * tile_m);
+  int* red_i = reinterpret_cast<int*>(red_d + kNnThreads * QR);
+  // target rows for the index search: resident in shared memory, else global
+  const float4* rows = nt == 1 ? buf[0] : reinterpret_cast<const float4*>(tg);
+  const int step = nt == 1 ? 1 : ld / 4;
+  bool staged = nt != 1;
+  if (!staged) stage_async(buf[0], tg, ld, 0, Mp);  // awaited after the first queries load
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const long long f0 = item * per_item + wq * 32 * QR + lane;
+    float qx[QR], qy[QR], qz[QR], best[QR];
+    int bch[QR], bi[QR];
+#pragma unroll
+    for (int r = 0; r < QR; ++r) {
+      qx[r] = qy[r] = qz[r] = 0.f;
+      if (f0 + 32 * r < nq) src.load(f0 + 32 * r, qx[r], qy[r], qz[r]);
+      best[r] = finf();
+      bch[r] = -1;
+    }
+    if (!staged) {
+      cp_async_wait<0>();
+      __syncthreads();
+      staged = true;
+    }
+    if (nt == 1) {
+      const int len = Mp / S;
+      scan<QR, IDX>(buf[0] + s * len, len, s * len, qx, qy, qz, best, bch);
+    } else {
+      stage_async(buf[0], tg, ld, 0, tile_m);
+      for (int j = 0; j < nt; ++j) {
+        const int m0 = j * tile_m, n = min(tile_m, Mp - m0);
+        if (j + 1 < nt) {
+          stage_async(buf[(j + 1) & 1], tg, ld, m0 + tile_m, min(tile_m, Mp - m0 - tile_m));
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const int len = n / S;
+        scan<QR, IDX>(buf[j & 1] + s * len, len, m0 + s * len, qx, qy, qz, best, bch);
+        __syncthreads();  // the buffer is restaged next
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < QR; ++r)
+      bi[r] = IDX ? first_at(rows, step, bch[r], best[r], qx[r], qy[r], qz[r]) : 0;
+    if (S > 1) {  // merge the splits in order: lower (d2, index) wins
+      const int slot = wq * 32 * QR + lane;
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        red_d[s * per_item + slot + 32 * r] = best[r];
+        red_i[s * per_item + slot + 32 * r] = bi[r];
+      }
+      __syncthreads();
+      if (s == 0) {
+        for (int o = 1; o < S; ++o) {
+#pragma unroll
+          for (int r = 0; r < QR; ++r) {
+            const float d = red_d[o * per_item + slot + 32 * r];
+            const int i = red_i[o * per_item + slot + 32 * r];
+            if (d < best[r] || (d == best[r] && i < bi[r])) {
+              best[r] = d;
+              bi[r] = i;
+            }
+          }
+        }
+      }
+      __syncthreads();  // red is rewritten by the next item
+    }
+    if (s == 0) {
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        const long long f = f0 + 32 * r;
+        if (f >= nq) continue;
+        if (IDX) {  // best is the winner's distance, unless clamped or not finite
+          const int i = min(bi[r], Nt - 1);
+          d2[f] = i == bi[r] && best[r] < finf() ? best[r]
+                                                 : dist2(rows[i * step], qx[r], qy[r], qz[r]);
+          idx[f] = i;
+        } else {
+          d2[f] = fmaxf(best[r], 0.f);
+        }
+      }
+    }
   }
+}
+
+__global__ void __launch_bounds__(kNnThreads, 2)
+min_d2_nodes_kernel(NodeQueries src, long long nq, const float* __restrict__ wm,
+                    int Mp, int tile_m, float* __restrict__ d2) {
+  min_d2_body<kK4Qr, false>(src, nq, wm, 8, Mp, tile_m, 1, Mp, d2, nullptr);
+}
+
+template <int QR>
+__global__ void __launch_bounds__(kNnThreads, 2)
+nn_query_kernel(PointQueries src, long long nq, const float* __restrict__ t4,
+                int Mp, int tile_m, int S, int Nt, float* __restrict__ d2,
+                int* __restrict__ idx) {
+  min_d2_body<QR, true>(src, nq, t4, 4, Mp, tile_m, S, Nt, d2, idx);
+}
+
+// Shared memory, tile and persistent grid of a launch over nq queries.
+struct Plan {
+  int grid = 0, tile_m = 0;
+  size_t smem = 0;
+};
+
+template <typename Kernel>
+cudaError_t plan(Kernel kernel, long long nq, int Mp, int S, int QR, Plan& p) {
+  const bool resident = Mp <= kResidentMax;
+  p.tile_m = resident ? Mp : kRingTile;
+  p.smem = (resident ? 1 : 2) * static_cast<size_t>(p.tile_m) * sizeof(float4) +
+           (S > 1 ? static_cast<size_t>(kNnThreads) * QR * 8 : 0);
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(p.smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kNnThreads, p.smem);
+  if (err != cudaSuccess) return err;
+  const long long per_item = (kNnWarps / S) * 32 * QR;
+  const long long items = (nq + per_item - 1) / per_item;
+  p.grid = static_cast<int>(std::min(items, static_cast<long long>(sms) * std::max(occ, 1)));
+  return cudaSuccess;
 }
 
 }  // namespace goicp
 
-// idx may be null (K4: min_d2_nodes, mxu.py:361, distances only).  B rows
-// go out in launches of at most 65,535 (the grid's y limit).
+// K4: d2 [B, Np] for B node poses.  `idx` must be null (K1, the indexed
+// route, is goicp_nn_query); Mp a multiple of 64.
 extern "C" int goicp_nn_min_d2(const float* params, int B, const float* srcT,
                                int Np, const float* wm, int Mp, float* d2,
                                int* idx, void* stream) {
-  constexpr int kMaxY = 65535;
-  for (int b0 = 0; b0 < B; b0 += kMaxY) {
-    const size_t off = static_cast<size_t>(b0) * Np;
-    dim3 grid((Np + goicp::kNnThreads - 1) / goicp::kNnThreads, min(kMaxY, B - b0));
-    goicp::nn_min_d2_kernel<<<grid, goicp::kNnThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        params + static_cast<size_t>(b0) * 16, srcT, Np, wm, Mp, d2 + off,
-        idx == nullptr ? nullptr : idx + off);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  using namespace goicp;
+  if (idx != nullptr || B <= 0 || Np <= 0 || Mp <= 0 || Mp % 64 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nq = static_cast<long long>(B) * Np;
+  Plan p;
+  cudaError_t err = plan(min_d2_nodes_kernel, nq, Mp, 1, kK4Qr, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  min_d2_nodes_kernel<<<p.grid, kNnThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      NodeQueries{params, srcT, Np}, nq, wm, Mp, p.tile_m, d2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int QR>
+static int launch_nn_query(const float* q, int Q, const float* t4, int Mp, int Nt,
+                           int splits, float* d2, int* idx, cudaStream_t st) {
+  using namespace goicp;
+  Plan p;
+  const cudaError_t err = plan(nn_query_kernel<QR>, Q, Mp, splits, QR, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nn_query_kernel<QR><<<p.grid, kNnThreads, p.smem, st>>>(
+      PointQueries{q}, Q, t4, Mp, p.tile_m, splits, Nt, d2, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1: d2 [Q] and idx [Q] for the points q [Q, 3] against targets t4
+// [Mp, 4] (Nt real ones, Mp a multiple of 64), with `splits` target splits
+// (1, 2, 4 or 8) and `qr` queries per thread (1 or 4).
+extern "C" int goicp_nn_query(const float* q, int Q, const float* t4, int Mp,
+                              int Nt, int splits, int qr, float* d2, int* idx,
+                              void* stream) {
+  const bool split_ok = splits == 1 || splits == 2 || splits == 4 || splits == 8;
+  if (Q <= 0 || Nt <= 0 || Nt > Mp || Mp % 64 != 0 || !split_ok)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (qr) {
+    case 1: return launch_nn_query<1>(q, Q, t4, Mp, Nt, splits, d2, idx, st);
+    case 4: return launch_nn_query<4>(q, Q, t4, Mp, Nt, splits, d2, idx, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
 }

@@ -43,11 +43,14 @@ class IcpResult:
 
 def exact_correspondence(targets) -> Callable:
     """Correspondence closure: exact NN against ``targets [Nt,3]`` through K1
-    (its plain version for CPU tensors).  Returns ``(dst, d2)``."""
-    from goicp_tpu_torch.nn.fused import nearest_neighbor_mxu
+    (its plain version for CPU tensors), whose target layout is packed once
+    here for CUDA tensors.  Returns ``(dst, d2)``."""
+    from goicp_tpu_torch.nn.fused import nearest_neighbor_mxu, pack_nn_targets
+
+    packed = pack_nn_targets(targets) if targets.is_cuda else None
 
     def corr(pts):
-        d2, idx = nearest_neighbor_mxu(pts, targets)
+        d2, idx = nearest_neighbor_mxu(pts, targets, packed=packed)
         dst = targets.index_select(0, idx.reshape(-1)).reshape(*idx.shape, 3)
         return dst, d2
 

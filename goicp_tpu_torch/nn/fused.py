@@ -20,6 +20,9 @@ fallback from one to the other.  Every kernel launch adds one to
 
 from __future__ import annotations
 
+import collections
+import functools
+
 import torch
 
 from goicp_tpu_torch.nn import kernels
@@ -38,11 +41,14 @@ launches = {
     "min_d2_nodes": 0, "bounds_nodes_trimmed": 0, "bounds_groups_trimmed": 0,
     "bounds_groups": 0,
 }
+# K1's launches by (queries, targets), reset with them
+nn_launch_shapes = collections.Counter()
 
 
 def reset_launch_counts():
     for k in launches:
         launches[k] = 0
+    nn_launch_shapes.clear()
 
 
 def _pick_tile(n: int, cap: int, quantum: int = 128) -> int:
@@ -261,44 +267,82 @@ def _min_d2_plain(qx, qy, qz, wm, tile: int = 512):
 
 
 # ---------------------------------------------------------------------------
-# K1: exact nearest neighbour (csrc/nn_min_d2.cu)
+# K1: exact nearest neighbour (csrc/nn_min_d2.cu, nn_query_kernel)
 # ---------------------------------------------------------------------------
 
 
-def _nn_kernel(flat, targets):
-    srcT = pack_sources(flat)
-    wm = pack_targets(targets)
-    dev = flat.device
-    params = pack_params(torch.eye(3, device=dev)[None], torch.zeros((1, 3), device=dev))
-    Np, Mp = srcT.shape[1], wm.shape[0]
-    _expect("nearest_neighbor_mxu", srcT, (8, Np))
-    _expect("nearest_neighbor_mxu", wm, (Mp, 8))
-    d2 = torch.empty((1, Np), dtype=torch.float32, device=dev)
-    idx = torch.empty((1, Np), dtype=torch.int32, device=dev)
-    _launch("nearest_neighbor_mxu", kernels.lib().goicp_nn_min_d2,
-            params.data_ptr(), 1, srcT.data_ptr(), Np, wm.data_ptr(), Mp,
+_NN_MIN_SLICE = 64       # targets a split walks at the least
+
+
+def pack_nn_targets(targets) -> torch.Tensor:
+    """K1's target layout ``[Mp, 4]``: the first four columns of
+    :func:`pack_targets` (m_x, m_y, m_z, 1; padded rows at 1e15).  A caller
+    that queries one cloud many times (the ICP) packs it once."""
+    return pack_targets(targets)[:, :4].contiguous()
+
+
+def nn_route(Q: int, Mp: int, sms: int):
+    """K1's launch shape ``(splits, queries per thread)`` for ``Q`` queries
+    against ``Mp`` padded targets on a card of ``sms`` SMs.  Up to 4 CTAs
+    per SM of one query per thread (32 queries a CTA), as an in-round
+    refine's 12,144 queries make: 8 target splits, so that the work spreads
+    finely over the SMs.  Above that, 4 queries per thread and 4 splits
+    (256 queries a CTA), whose register blocking spends fewer loads and
+    selects per pair.  A split walks at least 64 targets.
+    (``nn_ab.py --routes`` times every route at the bunny solve's shapes.)"""
+    s, qr = (8, 1) if -(-Q // 32) <= 4 * sms else (4, 4)
+    while s > 1 and Mp // s < _NN_MIN_SLICE:
+        s //= 2
+    return s, qr
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _nn_kernel(flat, t4, nt: int, route=None):
+    """K1 on ``flat [Q, 3]`` against ``t4 [Mp, 4]`` (``nt`` real targets):
+    ``(d2 [Q], idx [Q] int32)``, ``idx`` clamped to ``nt − 1`` and ``d2``
+    taken from that target.  ``route`` forces ``(splits, qr)``."""
+    Q, Mp = flat.shape[0], t4.shape[0]
+    _expect("nearest_neighbor_mxu", flat, (Q, 3))
+    _expect("nearest_neighbor_mxu", t4, (Mp, 4))
+    splits, qr = route or nn_route(Q, Mp, _sm_count(flat.device.index))
+    d2 = torch.empty((Q,), dtype=torch.float32, device=flat.device)
+    idx = torch.empty((Q,), dtype=torch.int32, device=flat.device)
+    _launch("nearest_neighbor_mxu", kernels.lib().goicp_nn_query,
+            flat.data_ptr(), Q, t4.data_ptr(), Mp, nt, splits, qr,
             d2.data_ptr(), idx.data_ptr(), _stream(flat))
-    return idx[0, :flat.shape[0]]
+    nn_launch_shapes[(Q, nt)] += 1
+    return d2, idx
 
 
-def nearest_neighbor_mxu(queries, targets):
+def nearest_neighbor_mxu(queries, targets, packed=None):
     """Exact NN (values + indices), the drop-in of ``nn.brute.nearest_neighbor``
     (``mxu.py:1026``): ``queries [..., Q, 3]``, ``targets [Nt, 3]`` →
     ``(d2 [..., Q], idx [..., Q] int32)``.  As in the JAX wrapper, the index
-    is clamped to ``Nt − 1`` and ``d2`` recomputed from the gathered winner.
+    is clamped to ``Nt − 1`` and ``d2`` is that target's distance,
+    ``_sq3(q − m_idx)``: the CPU route recomputes it after the plain
+    version, the kernel returns it bit for bit.  ``packed`` is
+    :func:`pack_nn_targets` of ``targets``, made once by a caller that
+    queries them many times; without it the CUDA route packs per call.
     """
     batch_shape = queries.shape[:-2]
     Q = queries.shape[-2]
     flat = queries.reshape(-1, 3).contiguous()
-    if _route("nearest_neighbor_mxu", flat, targets):
+    tensors = (flat, targets) if packed is None else (flat, targets, packed)
+    if _route("nearest_neighbor_mxu", *tensors):
         if flat.shape[0] == 0:
+            d2 = torch.zeros((0,), dtype=torch.float32, device=flat.device)
             idx = torch.zeros((0,), dtype=torch.int32, device=flat.device)
         else:
-            idx = _nn_kernel(flat, targets.contiguous())
+            t4 = pack_nn_targets(targets) if packed is None else packed
+            d2, idx = _nn_kernel(flat, t4, targets.shape[0])
     else:
         _, idx = nearest_neighbor(flat, targets)
-    idx = torch.clamp(idx, max=targets.shape[0] - 1)
-    d2 = _sq3(flat - targets.index_select(0, idx))
+        idx = torch.clamp(idx, max=targets.shape[0] - 1)
+        d2 = _sq3(flat - targets.index_select(0, idx))
     return d2.reshape(*batch_shape, Q), idx.reshape(*batch_shape, Q)
 
 
@@ -475,7 +519,7 @@ def bounds_nodes(srcT_ext, wm, params):
 
 
 # ---------------------------------------------------------------------------
-# K4: per-node min distances (csrc/nn_min_d2.cu, no index)
+# K4: per-node min distances (csrc/nn_min_d2.cu, min_d2_nodes_kernel)
 # ---------------------------------------------------------------------------
 
 
@@ -486,7 +530,7 @@ def min_d2_nodes_plain(srcT, wm, params):
 
 def min_d2_nodes(srcT, wm, params):
     """Per-node exact min squared distances ``d2 [B, Np]`` for the queries
-    ``R_b·p + t_b`` (``mxu.py:361``): K1's kernel without the index."""
+    ``R_b·p + t_b`` (``mxu.py:361``): K1's source without the index."""
     if not _route("min_d2_nodes", srcT, wm, params):
         return min_d2_nodes_plain(srcT, wm, params)
     B, Np, Mp = params.shape[0], srcT.shape[1], wm.shape[0]

@@ -95,6 +95,9 @@ def _build(so_path: str):
 def _bind(lib):
     lib.goicp_nn_min_d2.restype = _i
     lib.goicp_nn_min_d2.argtypes = [_vp, _i, _vp, _i, _vp, _i, _vp, _vp, _vp]
+    # q, Q, t4, Mp, Nt, splits, qr, d2, idx, stream
+    lib.goicp_nn_query.restype = _i
+    lib.goicp_nn_query.argtypes = [_vp, _i, _vp, _i, _i, _i, _i, _vp, _vp, _vp]
     lib.goicp_min_d2_grouped.restype = _i
     lib.goicp_min_d2_grouped.argtypes = [_vp, _i, _vp, _i, _vp, _i, _vp, _vp]
     lib.goicp_bounds_nodes.restype = _i

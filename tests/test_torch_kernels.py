@@ -6,7 +6,7 @@ repo's conftest imports jax, which that machine does not have).
 
 Expected agreement: K1, K3 and K4 round exactly as their plain versions
 (the kernels use non-contracting intrinsics), so indices and distances are
-equal; K2, K5, K6 and K7 reduce their sums in another order, so ub and lb
+equal, and K1 keeps the earliest index on every tie, on each of its routes; K2, K5, K6 and K7 reduce their sums in another order, so ub and lb
 agree to rtol 1e-5 / atol 1e-5, and the screened sets may differ only for
 nodes whose lb lies within that tolerance of the threshold.  The trimmed
 kernels' per-point terms are bit-equal, so their bisection thresholds are
@@ -36,15 +36,69 @@ def _cloud(rng, n, dev):
     return torch.as_tensor(rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32), device=dev)
 
 
-@pytest.mark.parametrize("nq,nt", [(300, 700), (64 * 1518, 1797)])
-def test_k1_nearest_neighbor(cuda, nq, nt):
-    rng = np.random.default_rng(1)
-    q, t = _cloud(rng, nq, cuda), _cloud(rng, nt, cuda)
-    d2, idx = fused.nearest_neighbor_mxu(q, t)
+def tie_cloud(rng):
+    """700 targets and 300 queries built for ties: targets 350-649 repeat
+    0-299, the six axis points at 0.25 sit at 650-655 and again at 660-665
+    (1/16 from the origin, exactly), and 40 queries sit at the origin; any
+    other target near the origin is moved off to (0.49, 0.49, 0.49)."""
+    tgt = rng.uniform(-0.5, 0.5, (700, 3)).astype(np.float32)
+    tgt[350:650] = tgt[0:300]
+    axes = (0.25 * np.concatenate([np.eye(3), -np.eye(3)])).astype(np.float32)
+    tgt[650:656], tgt[660:666] = axes, axes[::-1]
+    near = (tgt ** 2).sum(1) < 0.07
+    near[650:656] = near[660:666] = False
+    tgt[near] = 0.49
+    q = rng.uniform(-0.5, 0.5, (300, 3)).astype(np.float32)
+    q[:40] = 0.0
+    return q, tgt
+
+
+def earliest_argmin(q, tgt):
+    """The earliest nearest target, from f32 distances in the kernels' order."""
+    dx, dy, dz = (tgt[None, :, k] - q[:, None, k] for k in range(3))
+    return np.argmin((dx * dx + dy * dy) + dz * dz, axis=1)
+
+
+def _k1_agrees(q, t, d2, idx):
+    """K1's output against the plain version: equal indices, bit-equal d2,
+    and d2 = _sq3(q − t[idx]) (what the CPU route recomputes)."""
     torch.cuda.synchronize()
     d2_p, idx_p = nearest_neighbor(q, t)
     assert torch.equal(idx, idx_p)
     assert torch.equal(d2, d2_p)
+    assert torch.equal(d2, fused._sq3(q - t.index_select(0, idx)))
+
+
+# random; in-round refine (8 poses x 1,518); coarse multistart (64 x 512
+# against 512); full-resolution multistart (64 x 1,518); a million queries
+@pytest.mark.parametrize("nq,nt", [(300, 700), (8 * 1518, 1797), (64 * 512, 512),
+                                   (64 * 1518, 1797), (1_100_000, 1797)])
+def test_k1_nearest_neighbor(cuda, nq, nt):
+    rng = np.random.default_rng(1)
+    q, t = _cloud(rng, nq, cuda), _cloud(rng, nt, cuda)
+    _k1_agrees(q, t, *fused.nearest_neighbor_mxu(q, t))
+    _k1_agrees(q, t, *fused.nearest_neighbor_mxu(q, t, packed=fused.pack_nn_targets(t)))
+
+
+# every route on the tie cloud, and on a target set above the resident limit
+@pytest.mark.parametrize("route", [(1, 1), (2, 1), (4, 1), (8, 1), (1, 4), (4, 4), (8, 4)])
+@pytest.mark.parametrize("case", ["ties", "ring"])
+def test_k1_routes(cuda, route, case):
+    rng = np.random.default_rng(8)
+    if case == "ties":
+        q, t = (torch.as_tensor(x, device=cuda) for x in tie_cloud(rng))
+        want = torch.as_tensor(earliest_argmin(q.cpu().numpy(), t.cpu().numpy()), device=cuda)
+    else:
+        q, t = _cloud(rng, 2000, cuda), _cloud(rng, 20000, cuda)
+        t[19000:19100] = q[:100]            # exact hits late, duplicated earlier
+        t[7000:7100] = q[:100]
+        want = None
+    d2, idx = fused._nn_kernel(q, fused.pack_nn_targets(t), t.shape[0], route=route)
+    _k1_agrees(q, t, d2, idx)
+    if want is not None:
+        assert torch.equal(idx.long(), want)
+    else:
+        assert torch.equal(idx[:100].long(), torch.arange(7000, 7100, device=cuda))
 
 
 def _nodes(rng, B, dev):
@@ -98,12 +152,26 @@ def _agree_screened(ub, lb, ub_p, lb_p, thresh, scale, group=1, screen=False):
         assert 0 < nscr < ub_p.numel() // group
 
 
-@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (21080, 1518, 1797)])
+# B·Np not a multiple of a CTA's 1,024 queries; the R-round bucket; a
+# target set above the resident limit (the ring of target tiles)
+@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (21080, 1518, 1797), (16, 1518, 20000)])
 def test_k4_min_d2_nodes(cuda, B, n, nt):
     rng = np.random.default_rng(4)
     src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
     R, t = _nodes(rng, B, cuda)
     srcT, wm, params = fused.pack_sources(src), fused.pack_targets(tgt), fused.pack_params(R, t)
+    got = fused.min_d2_nodes(srcT, wm, params)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused.min_d2_nodes_plain(srcT, wm, params))
+
+
+def test_k4_unpadded_source(cuda):
+    """A source of Np = 300 columns (not a multiple of 128)."""
+    rng = np.random.default_rng(5)
+    srcT = torch.zeros((8, 300), device=cuda)
+    srcT[:3] = _cloud(rng, 300, cuda).T
+    wm = fused.pack_targets(_cloud(rng, 700, cuda))
+    params = fused.pack_params(*_nodes(rng, 7, cuda))
     got = fused.min_d2_nodes(srcT, wm, params)
     torch.cuda.synchronize()
     assert torch.equal(got, fused.min_d2_nodes_plain(srcT, wm, params))

@@ -16,6 +16,7 @@ import torch  # noqa: E402
 from goicp_tpu.nn import brute as jbrute  # noqa: E402
 from goicp_tpu.nn import mxu  # noqa: E402
 from goicp_tpu_torch.nn import brute, fused  # noqa: E402
+from tests.test_torch_kernels import earliest_argmin, tie_cloud  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -98,6 +99,42 @@ def test_nearest_neighbor_earliest_index_wins_ties():
     _, idx_j = mxu.nearest_neighbor_mxu(q, tgt, interpret=True)
     assert np.array_equal(idx.numpy(), _np(idx_j))
     assert idx.tolist() == [3, 0, 3]
+
+
+def test_nearest_neighbor_ties_on_duplicated_targets():
+    """Queries equidistant from several targets, and targets duplicated far
+    apart in the cloud: the earliest index wins in the plain version (the
+    rule K1's merge of target splits keeps) and in the JAX package's kernel,
+    with the same d2."""
+    q, tgt = tie_cloud(np.random.default_rng(9))
+    want = earliest_argmin(q, tgt)
+    assert np.all(want[:40] == 650)
+    assert (want < 300).sum() > 100          # the duplicate at +350 loses
+    d2_t, idx_t = fused.nearest_neighbor_mxu(torch.from_numpy(q), torch.from_numpy(tgt))
+    assert np.array_equal(idx_t.numpy(), want)
+    d2_j, idx_j = mxu.nearest_neighbor_mxu(q, tgt, interpret=True)
+    assert np.array_equal(_np(idx_j), want)
+    np.testing.assert_allclose(d2_t.numpy(), _np(d2_j), rtol=1e-5, atol=1e-7)
+    assert np.all(d2_t.numpy()[:40] == np.float32(0.0625))
+
+
+def test_pack_nn_targets_is_the_first_four_columns(scene):
+    got = fused.pack_nn_targets(scene["tgt"]).numpy()
+    ref = _np(mxu.pack_targets(scene["tgt"]))[:, :4]
+    assert got.shape == (768, 4) and np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("Q,Mp,want", [
+    (8 * 1518, 1920, (8, 1)),      # in-round refine: 380 CTAs of 32 queries
+    (1518, 1920, (8, 1)),          # one pose (scoring, polish)
+    (64 * 512, 512, (4, 4)),       # coarse multistart: 256 queries a CTA
+    (64 * 1518, 1920, (4, 4)),     # full-resolution multistart
+    (100, 128, (2, 1)),            # at least 64 targets a split
+    (64 * 512, 128, (2, 4)),
+    (256, 64, (1, 1)),
+])
+def test_nn_route(Q, Mp, want):
+    assert fused.nn_route(Q, Mp, 132) == want
 
 
 def test_min_d2_groups_k3_plain_matches_jax(scene):
