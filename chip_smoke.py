@@ -16,9 +16,10 @@ Phases, each of which fails the run:
    time per call, and on a doubled target cloud whose ties the earlier twin
    must win); K3 grouped distances; K2 screened bounds and K4 per-node
    distances at the largest R-round bucket (K4 also on its ring route, above
-   6,144 targets); K5 screened trimmed bounds there too; K6 screened trimmed
-   grouped bounds at se3_pop groups and once at Np ≥ 4,096 (its scratch in
-   global memory); K7 screened grouped bounds (no solver path calls K7);
+   6,144 targets); K5 screened trimmed bounds there too (and on its route
+   above 6,144 targets); K6 screened trimmed grouped bounds at se3_pop
+   groups and at 263 groups of Np = 4,096; K7 screened grouped bounds (no
+   solver path calls K7);
 4. a certified solve of the in-repo bunny pair through ``register`` (K1,
    K2, K3 must launch), with the pose error against the ground truth;
 4b. a trimmed (trim 0.25) certified solve of a partial-overlap bunny pair
@@ -31,9 +32,11 @@ Phases, each of which fails the run:
    the card and on the CPU path: trimmed (K4), trimmed with
    ``bound_backend="screen"`` (K5 and K6 must launch), untrimmed with
    ``screen=False`` (K4);
-6. with ``--profile`` only: the bunny solve, and the trimmed solve with a
-   30 s budget, once more under ``torch.profiler`` (device activity), for
-   the device's busy share of each solve and its device time by kernel.
+6. with ``--profile`` only: the bunny solve, the trimmed solve and the
+   trimmed solve on ``bound_backend="screen"`` (each trimmed one with a 30 s
+   budget) once more under ``torch.profiler`` (device activity), for the
+   device's busy share of each solve, its device time by kernel and the
+   launches of K5 and K6.
 
 Each solve's launch counts are reset just before it and read just after;
 K1's are also counted by (queries, targets), and the ``kernels`` line has a
@@ -463,6 +466,15 @@ def check_k5(chk, dev, S, T, rng, clock_hz, B, h):
         out[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=worst,
                           blocks_run=int(blocks.sum().item()), blocks_total=B * (Np // tq),
                           survivors=survivors)
+    # the route above 6,144 targets: every warp reads them from global memory
+    wm_g = fused.pack_targets(torch.rand(20000, 3, device=dev) * 2.0 - 1.0)
+    p_g = p_open[:64].contiguous()
+    ub, lb = fused.bounds_nodes_trimmed(srcX, wm_g, p_g, h=h, drop=drop)
+    torch.cuda.synchronize()
+    ok, err, _, _ = screened_agree(ub, lb, *fused.bounds_nodes_trimmed_plain(srcX, wm_g, p_g, h=h, drop=drop),
+                                   1e30, 1e30)
+    chk.expect(ok, f"K5 global-target route 64 nodes {N}x20000: max |err| {err:.3g} "
+                   "(tol 1e-5 + 1e-5·|ref|)")
     s = out["screened"]
     rec = _rec("K5 bounds_nodes_trimmed (screened trimmed bounds)",
                "goicp_tpu_torch/csrc/bounds_trimmed.cu", "goicp_tpu/nn/mxu.py:738",
@@ -471,7 +483,8 @@ def check_k5(chk, dev, S, T, rng, clock_hz, B, h):
                f"{B} nodes x {N} points x {NT} targets, h {h}, thresh = half the median positive "
                f"lb ({s['blocks_run']} of {s['blocks_total']} blocks run, {s['survivors']} survivors)",
                library_none="no PyTorch call computes a screened, trimmed sum",
-               unscreened=out["unscreened"])
+               unscreened=out["unscreened"], launch_plan=fused.k5_plan(B, Np, wm.shape[0]),
+               global_target_route=dict(max_abs_err=err, plan=fused.k5_plan(64, Np, wm_g.shape[0])))
     report("K5 screened", rec)
     report("K5 unscreened", dict(out["unscreened"], library_ms=None,
                                  shape=f"{B} nodes x {N} points x {NT} targets"))
@@ -494,28 +507,23 @@ def group_batch(rng, G, dev):
 
 
 def check_k6(chk, dev, S, T, rng, clock_hz, G, h, S_big):
-    """K6 at se3_pop groups with the trimmed protocol's h, and once with a
-    source of Np ≥ 4,096 points, whose [16, Np] scratch is staged in global
-    memory."""
+    """K6 at se3_pop groups with the trimmed protocol's h, and at 263
+    groups with a source of Np = 4,096 points."""
     import torch
 
-    from goicp_tpu_torch.nn import fused, kernels
+    from goicp_tpu_torch.nn import fused
     from goicp_tpu_torch.nn.agree import screened_agree, trim_levels
 
     NT = T.shape[0]
     wm = fused.pack_targets(T)
     out = {}
-    for route, src, g in (("shared", S, G), ("global", S_big, 263)):
+    for route, src, g in (("se3_pop", S, G), ("Np 4096", S_big, 263)):
         N = src.shape[0]
-        hh = h if route == "shared" else int(round(0.75 * N))
+        hh = h if route == "se3_pop" else int(round(0.75 * N))
         drop = N - hh
         srcX = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
         Np = srcX.shape[1]
         tq = fused._pick_tile(Np, fused.TQB)
-        in_smem = bool(kernels.lib().goicp_bounds_groups_trimmed_smem(Np))
-        chk.expect(in_smem == (route == "shared"),
-                   f"K6 Np {Np}: scratch in {'shared' if in_smem else 'global'} memory "
-                   f"(expected {route})")
         Rg, t8, af, gt8 = group_batch(rng, g, dev)
         p_open = fused.pack_group_params_bounds_trimmed(Rg, t8, af, gt8, 0.0, 1e30, 1e30)
         _, lb_open = fused.bounds_groups_trimmed_plain(srcX, wm, p_open, h=hh, drop=drop)
@@ -528,7 +536,7 @@ def check_k6(chk, dev, S, T, rng, clock_hz, G, h, S_big):
             ub_p, lb_p, blocks = fused.bounds_groups_trimmed_plain(srcX, wm, params, h=hh, drop=drop,
                                                                    with_blocks=True)
             ok, err, nscr, differ = screened_agree(ub, lb, ub_p, lb_p, th, sc, group=8)
-            chk.expect(ok, f"K6 {label} {g} groups {N}x{NT} ({route} scratch): max |err| "
+            chk.expect(ok, f"K6 {label} {g} groups {N}x{NT} ({route}): max |err| "
                            f"{err:.3g} (tol 1e-5 + 1e-5·|ref|), {nscr} groups screened, "
                            f"screened-set differences {differ} (all within tol)")
             ms = timed_ms(lambda: fused.bounds_groups_trimmed(srcX, wm, params, h=hh, drop=drop), 5)
@@ -540,8 +548,10 @@ def check_k6(chk, dev, S, T, rng, clock_hz, G, h, S_big):
             out[f"{route} {label}"] = dict(
                 ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=err,
                 blocks_run=int(blocks.sum().item()), blocks_total=g * (Np // tq),
-                survivors=survivors, shape=f"{g} groups x 8 x {N} points x {NT} targets, h {hh}")
-    s = out["shared screened"]
+                survivors=survivors, shape=f"{g} groups x 8 x {N} points x {NT} targets, h {hh}",
+                points_per_thread=fused.k6_qr(tq),
+                ctas=min(g, fused._k6_ctas(dev.index or 0, tq, fused.k6_qr(tq))))
+    s = out["se3_pop screened"]
     rec = _rec("K6 bounds_groups_trimmed (screened trimmed grouped bounds)",
                "goicp_tpu_torch/csrc/bounds_trimmed_grouped.cu", "goicp_tpu/nn/mxu.py:918",
                max(v["max_abs_err"] for v in out.values()), s["ms"], s["plain_ms"],
@@ -549,7 +559,7 @@ def check_k6(chk, dev, S, T, rng, clock_hz, G, h, S_big):
                s["shape"] + f", thresh = half the median positive lb ({s['blocks_run']} of "
                f"{s['blocks_total']} blocks run, {s['survivors']} surviving groups)",
                library_none="no PyTorch call computes a screened, trimmed sum",
-               variants={k: v for k, v in out.items() if k != "shared screened"})
+               variants={k: v for k, v in out.items() if k != "se3_pop screened"})
     for k, v in out.items():
         report(f"K6 {k}", dict(v, library_ms=None))
     return rec
@@ -625,6 +635,16 @@ def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop, h_trim, big_src):
     rec["K7"] = check_k7(chk, dev, S, T, rng, clock_hz, se3_pop)
     rec["K7"]["check_launches"] = fused.launches["bounds_groups"]
     return rec
+
+
+def big_source(n: int = 4096):
+    """``n`` points of rotated_bunny.ply (seed 4), scaled into [−1, 1]³: the
+    source of K6's Np = 4,096 check."""
+    from goicp_tpu_torch.io import read_ply
+
+    big = read_ply(os.path.join(HERE, "data_generated", "rotated_bunny.ply"))
+    big = big[np.sort(np.random.default_rng(4).choice(big.shape[0], n, replace=False))]
+    return (big / np.abs(big).max()).astype(np.float32)
 
 
 def load_bunny_partial():
@@ -791,21 +811,24 @@ def small_trimmed_agreement(chk, dev, src, tgt, R_gt, t_gt):
 
 
 def profile_solve(chk, dev, label, src, tgt, R_gt, t_gt, trim: float = 0.0,
-                  wall_s: float = SOLVE_WALL_S):
+                  wall_s: float = SOLVE_WALL_S, **kw):
     """``--profile``: a solve once more under ``torch.profiler``, tracing
     device activity only (no host-op recording, so the host runs almost as
     fast as untraced), with a BnB budget of ``wall_s``.  Reports the
     device's busy share of the solve's wall (union of kernel and copy
     intervals) and device time by kernel; the tables go to
-    ``chiprun_out/chip_smoke_profile.json``."""
+    ``chiprun_out/chip_smoke_profile.json``.  ``kw`` overrides
+    ``BnbParams``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from goicp_tpu_torch import register
+    from goicp_tpu_torch.nn import fused
 
-    params, _ = solve_params(dev, src, tgt, R_gt, t_gt, trim, max_wall_s=wall_s)
+    params, _ = solve_params(dev, src, tgt, R_gt, t_gt, trim, max_wall_s=wall_s, **kw)
     torch.cuda.synchronize()
+    fused.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = register(src, tgt, params, device=dev)
@@ -821,14 +844,15 @@ def profile_solve(chk, dev, label, src, tgt, R_gt, t_gt, trim: float = 0.0,
         n, us = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, us + (e - s))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    info = dict(trim_fraction=trim, wall_s=wall, rounds=res.rounds, nodes=res.rot_nodes,
+    info = dict(trim_fraction=trim, bound_backend=params.bound_backend, wall_s=wall,
+                rounds=res.rounds, nodes=res.rot_nodes, launches=dict(fused.launches),
                 device_events=len(spans), device_busy_s=busy_us * 1e-6,
                 device_busy_share=busy_us * 1e-6 / wall,
                 by_kernel=[dict(name=k[:120], launches=n, device_s=us * 1e-6)
                            for k, (n, us) in top])
     print(f"profile {label}: " + json.dumps({k: info[k] for k in (
         "wall_s", "rounds", "nodes", "device_events", "device_busy_s",
-        "device_busy_share")}), flush=True)
+        "device_busy_share", "launches")}), flush=True)
     for row in info["by_kernel"][:12]:
         print(f"profile:   {row['device_s']:9.4f} s  {row['launches']:7d}x  {row['name']}",
               flush=True)
@@ -862,7 +886,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import goicp_tpu_torch  # noqa: F401  (sets the f32 precision policy)
-    from goicp_tpu_torch.io import read_ply
     from goicp_tpu_torch.nn import fused, kernels
 
     chk = Checks()
@@ -882,9 +905,7 @@ def main() -> int:
     psrc, ptgt, pR, pt = load_bunny_partial()
     se3_pop = max(64, min(4096, int(32e6 / (8 * src.shape[0]))))   # bnb/se3.py auto
     h_trim = int(round(N_SRC * (1.0 - TRIM)))
-    big = read_ply(os.path.join(HERE, "data_generated", "rotated_bunny.ply"))
-    big = big[np.sort(np.random.default_rng(4).choice(big.shape[0], 4096, replace=False))]
-    big = (big / np.abs(big).max()).astype(np.float32)
+    big = big_source()
     dev = torch.device("cuda")
     recs = kernel_checks(chk, dev, src, tgt, clock_mhz * 1e6, se3_pop, h_trim, big)
     phases = {
@@ -904,7 +925,10 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         prof = {"solve": profile_solve(chk, dev, "solve", src, tgt, R_gt, t_gt),
                 "trimmed solve": profile_solve(chk, dev, "trimmed solve", psrc, ptgt, pR, pt,
-                                               TRIM, PROFILE_TRIM_WALL_S)}
+                                               TRIM, PROFILE_TRIM_WALL_S),
+                "trimmed screen solve": profile_solve(
+                    chk, dev, "trimmed screen solve", psrc, ptgt, pR, pt, TRIM,
+                    PROFILE_TRIM_WALL_S, bound_backend="screen")}
 
     kernels_line = []
     for key, counter, phase in KERNELS:

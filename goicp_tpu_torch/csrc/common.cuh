@@ -180,96 +180,59 @@ __device__ __forceinline__ void block_reduce(T (&v)[K], T* red) {
   __syncthreads();  // red is rewritten by the next call
 }
 
-// Exact trimmed sums of R rows x[r*Np + i] (the h smallest of each row) by
-// the 24-step threshold bisection of mxu.py's trimmed kernels
-// (≙ bnb/se3_eval.py:_trimmed_sum_bisect): hi starts at the largest
-// non-sentinel entry + 1e-12, each step halves [lo, hi] on whether at
-// least h entries are ≤ mid.  The counts are exact integers, so lo and hi
-// come out bit-equal to the plain version; only the final sums S depend on
-// the reduction order.  Returns S + (h - C)⁺·hi in up[r] (the upper end)
-// and S + (h - C)⁺·lo in down[r] (the lower end).  `x` is shared or global
-// memory written by this CTA before a __syncthreads(); every thread calls
-// it and gets the same results.
-template <int R>
-__device__ __forceinline__ void trimmed_bisect(const float* x, int Np, int h,
-                                               float* fred, int* ired,
-                                               float (&up)[R], float (&down)[R]) {
-  float mx[R], lo[R], hi[R];
+// A reduction over the 32 lanes of a warp (xor butterfly).  Each step
+// combines the same two values on both lanes of a pair, so with a
+// commutative Op every lane returns the same bits.
+template <class Op, typename T>
+__device__ __forceinline__ T warp_reduce(T v) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float m = 0.f;
-    for (int i = threadIdx.x; i < Np; i += blockDim.x) {
-      const float v = x[static_cast<size_t>(r) * Np + i];
-      m = fmaxf(m, v < 1e29f ? v : 0.f);
-    }
-    mx[r] = m;
-  }
-  block_reduce<MaxF>(mx, fred);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    lo[r] = 0.f;
-    hi[r] = fadd(mx[r], 1e-12f);
-  }
-  const float hf = static_cast<float>(h);
-  for (int it = 0; it < 24; ++it) {
-    float mid[R];
-    int cnt[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      mid[r] = fmul(0.5f, fadd(lo[r], hi[r]));
-      int c = 0;
-      for (int i = threadIdx.x; i < Np; i += blockDim.x)
-        c += x[static_cast<size_t>(r) * Np + i] <= mid[r];
-      cnt[r] = c;
-    }
-    block_reduce<SumI>(cnt, ired);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const bool take = static_cast<float>(cnt[r]) >= hf;
-      lo[r] = take ? lo[r] : mid[r];
-      hi[r] = take ? mid[r] : hi[r];
-    }
-  }
-  float S[R];
-  int C[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float s = 0.f;
-    int c = 0;
-    for (int i = threadIdx.x; i < Np; i += blockDim.x) {
-      const float v = x[static_cast<size_t>(r) * Np + i];
-      if (v <= lo[r]) {
-        s = fadd(s, v);
-        ++c;
-      }
-    }
-    S[r] = s;
-    C[r] = c;
-  }
-  block_reduce<SumF>(S, fred);
-  block_reduce<SumI>(C, ired);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float rem = fmaxf(fsub(hf, static_cast<float>(C[r])), 0.f);
-    up[r] = fadd(S[r], fmul(rem, hi[r]));
-    down[r] = fadd(S[r], fmul(rem, lo[r]));
-  }
+  for (int off = 16; off > 0; off >>= 1) v = Op::op(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
-// Dynamic shared memory for a kernel that stages `dyn_bytes`: true when it
-// fits beside the kernel's static shared memory under the device's opt-in
-// limit (and then the opt-in is set).  When it is false, K5's launch fails
-// and K6 stages in global memory instead.
-template <typename Kernel>
-inline bool smem_fits(Kernel kernel, size_t dyn_bytes) {
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes fa;
-  if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return false;
-  if (fa.sharedSizeBytes + dyn_bytes > static_cast<size_t>(optin)) return false;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(dyn_bytes)) == cudaSuccess;
+// The exact trimmed sum of one row x[0, n) (its h smallest entries) by the
+// 24-step threshold bisection of mxu.py's trimmed kernels (= nn/fused.py:
+// trimmed_sum_bisect), by the 32 lanes of one warp: hi starts at the largest
+// non-sentinel entry + 1e-12, each step halves [lo, hi] on whether at least
+// h entries are <= mid.  The counts are exact integers (reduced by
+// warp_reduce, no CTA barrier), so lo and hi come out bit-equal to the
+// plain version; only the final sum S depends on the reduction order.
+// Returns S + (h - C)⁺·hi in `up` (the upper end) and S + (h - C)⁺·lo in
+// `down` (the lower end), the same on every lane.  The warp's lanes must
+// see x (a __syncwarp() or __syncthreads() after it was written).
+__device__ __forceinline__ void warp_trimmed_bisect(const float* x, int n, int h,
+                                                    float& up, float& down) {
+  const int lane = threadIdx.x & 31;
+  float m = 0.f;
+  for (int i = lane; i < n; i += 32) {
+    const float v = x[i];
+    m = fmaxf(m, v < 1e29f ? v : 0.f);
+  }
+  m = warp_reduce<MaxF>(m);
+  float lo = 0.f, hi = fadd(m, 1e-12f);
+  const float hf = static_cast<float>(h);
+  for (int it = 0; it < 24; ++it) {
+    const float mid = fmul(0.5f, fadd(lo, hi));
+    int c = 0;
+    for (int i = lane; i < n; i += 32) c += x[i] <= mid;
+    const bool take = static_cast<float>(warp_reduce<SumI>(c)) >= hf;
+    lo = take ? lo : mid;
+    hi = take ? mid : hi;
+  }
+  float s = 0.f;
+  int c = 0;
+  for (int i = lane; i < n; i += 32) {
+    const float v = x[i];
+    if (v <= lo) {
+      s = fadd(s, v);
+      ++c;
+    }
+  }
+  s = warp_reduce<SumF>(s);
+  c = warp_reduce<SumI>(c);
+  const float rem = fmaxf(fsub(hf, static_cast<float>(c)), 0.f);
+  up = fadd(s, fmul(rem, hi));
+  down = fadd(s, fmul(rem, lo));
 }
 
 }  // namespace goicp

@@ -21,6 +21,7 @@ fallback from one to the other.  Every kernel launch adds one to
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 
 import torch
@@ -579,10 +580,16 @@ def bounds_nodes_trimmed_plain(srcT_ext, wm, params, *, h: int, drop: int,
 
 def bounds_nodes_trimmed(srcT_ext, wm, params, *, h: int, drop: int):
     """Fused screened TRIMMED bounds for singleton nodes: ``(ub, lb) [B]``
-    (``mxu.py:777``).  The kernel's ``[2, Np]`` scratch lives in shared
-    memory; a source too large for it (Np above ~27,000) raises."""
+    (``mxu.py:777``).  The kernel keeps each node's ``[2, Np]`` scratch in
+    shared memory; a source too large for it (Np above ~29,000) raises."""
     if not _route("bounds_nodes_trimmed", srcT_ext, wm, params):
         return bounds_nodes_trimmed_plain(srcT_ext, wm, params, h=h, drop=drop)
+    return _k5_kernel(srcT_ext, wm, params, h, drop)
+
+
+def _k5_kernel(srcT_ext, wm, params, h: int, drop: int, warps: int = 0):
+    """K5's launch; ``warps`` forces the warps per CTA (0: the plan's pick,
+    the most resident warps per SM)."""
     B, Np, Mp = params.shape[0], srcT_ext.shape[1], wm.shape[0]
     _expect("bounds_nodes_trimmed", srcT_ext, (8, Np))
     _expect("bounds_nodes_trimmed", wm, (Mp, 8))
@@ -591,11 +598,22 @@ def bounds_nodes_trimmed(srcT_ext, wm, params, *, h: int, drop: int):
     lb = torch.empty_like(ub)
     if B == 0:
         return ub, lb
+    counter = torch.empty((1,), dtype=torch.int32, device=params.device)
     _launch("bounds_nodes_trimmed", kernels.lib().goicp_bounds_nodes_trimmed,
             params.data_ptr(), B, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
-            _pick_tile(Np, TQB), int(h), int(drop),
+            _pick_tile(Np, TQB), int(warps), int(h), int(drop), counter.data_ptr(),
             ub.data_ptr(), lb.data_ptr(), _stream(params))
     return ub, lb
+
+
+def k5_plan(B: int, Np: int, Mp: int, warps: int = 0) -> dict:
+    """K5's launch plan on the current card, without a launch: targets
+    resident in shared memory or read from global memory, warps per CTA,
+    persistent grid, dynamic shared bytes."""
+    out = (ctypes.c_int * 4)()
+    kernels.check(kernels.lib().goicp_bounds_nodes_trimmed_plan(
+        B, Np, Mp, _pick_tile(Np, TQB), int(warps), ctypes.addressof(out)), "k5_plan")
+    return dict(targets_resident=bool(out[0]), warps=out[1], grid=out[2], smem=out[3])
 
 
 # ---------------------------------------------------------------------------
@@ -640,6 +658,25 @@ def bounds_groups_trimmed(srcT_ext, wm, gparams, *, h: int, drop: int):
     [8G]`` in group-major order (``mxu.py:963``)."""
     if not _route("bounds_groups_trimmed", srcT_ext, wm, gparams):
         return bounds_groups_trimmed_plain(srcT_ext, wm, gparams, h=h, drop=drop)
+    return _k6_kernel(srcT_ext, wm, gparams, h, drop)
+
+
+def k6_qr(tq: int) -> int:
+    """K6's points per thread for point blocks of ``tq``: 128 threads a CTA
+    (``nn_ab.py --routes`` times the others)."""
+    return tq // 128
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_ctas(index: int, tq: int, qr: int) -> int:
+    with torch.cuda.device(index):
+        return kernels.lib().goicp_bounds_groups_trimmed_ctas(tq, qr)
+
+
+def _k6_kernel(srcT_ext, wm, gparams, h: int, drop: int, qr: int = 0):
+    """K6's launch over ``min(G, persistent CTAs)`` CTAs, each with a
+    ``[16, Np]`` slot of a global scratch; ``qr`` forces the points per
+    thread (0: :func:`k6_qr`)."""
     G, Np, Mp = gparams.shape[0], srcT_ext.shape[1], wm.shape[0]
     _expect("bounds_groups_trimmed", srcT_ext, (8, Np))
     _expect("bounds_groups_trimmed", wm, (Mp, 8))
@@ -648,14 +685,18 @@ def bounds_groups_trimmed(srcT_ext, wm, gparams, *, h: int, drop: int):
     lb = torch.empty_like(ub)
     if G == 0:
         return ub, lb
-    lib = kernels.lib()
-    # None: the [16, Np] scratch fits in shared memory; else a global buffer
-    gscr = (None if lib.goicp_bounds_groups_trimmed_smem(Np)
-            else torch.empty((G, 16, Np), dtype=torch.float32, device=gparams.device))
-    _launch("bounds_groups_trimmed", lib.goicp_bounds_groups_trimmed,
+    tq = _pick_tile(Np, TQB)
+    qr = qr or k6_qr(tq)
+    ctas = _k6_ctas(gparams.device.index, tq, qr)
+    if ctas <= 0:
+        raise ValueError(f"bounds_groups_trimmed: no launch for {qr} points per thread "
+                         f"at blocks of {tq}")
+    grid = min(G, ctas)
+    scratch = torch.empty((grid, 16, Np), dtype=torch.float32, device=gparams.device)
+    counter = torch.empty((1,), dtype=torch.int32, device=gparams.device)
+    _launch("bounds_groups_trimmed", kernels.lib().goicp_bounds_groups_trimmed,
             gparams.data_ptr(), G, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
-            _pick_tile(Np, TQB), int(h), int(drop),
-            None if gscr is None else gscr.data_ptr(),
+            tq, qr, int(h), int(drop), grid, scratch.data_ptr(), counter.data_ptr(),
             ub.data_ptr(), lb.data_ptr(), _stream(gparams))
     return ub, lb
 

@@ -8,9 +8,9 @@ source never loads a stale library.  Nothing here runs at import.
 
 The C entry points launch on the stream they are given and return
 ``cudaGetLastError()``; the wrappers in :mod:`goicp_tpu_torch.nn.fused`
-raise when it is not 0.  K6 also exports ``*_smem(Np)``, which says
-whether its scratch fits in shared memory (else the wrapper passes a
-global buffer).
+raise when it is not 0.  K5 also exports ``*_plan`` (its launch plan,
+without a launch) and K6 ``*_ctas`` (its persistent grid, which sizes the
+scratch its wrapper allocates).
 """
 
 from __future__ import annotations
@@ -104,15 +104,19 @@ def _bind(lib):
     lib.goicp_bounds_nodes.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _vp, _vp, _vp]
     lib.goicp_bounds_groups.restype = _i
     lib.goicp_bounds_groups.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _vp, _vp, _vp]
-    # rows, B/G, srcT, Np, wm, Mp, tq, h, drop, [global scratch,] ub, lb, stream
+    # params, B, srcT, Np, wm, Mp, tq, warps, h, drop, counter, ub, lb, stream
     lib.goicp_bounds_nodes_trimmed.restype = _i
-    lib.goicp_bounds_nodes_trimmed.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i,
-                                               _vp, _vp, _vp]
+    lib.goicp_bounds_nodes_trimmed.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i, _i,
+                                               _vp, _vp, _vp, _vp]
+    # B, Np, Mp, tq, warps, out[4]
+    lib.goicp_bounds_nodes_trimmed_plan.restype = _i
+    lib.goicp_bounds_nodes_trimmed_plan.argtypes = [_i, _i, _i, _i, _i, _vp]
+    # gparams, G, srcT, Np, wm, Mp, tq, qr, h, drop, grid, scratch, counter, ub, lb, stream
     lib.goicp_bounds_groups_trimmed.restype = _i
-    lib.goicp_bounds_groups_trimmed.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i,
-                                                _vp, _vp, _vp, _vp]
-    lib.goicp_bounds_groups_trimmed_smem.restype = _i
-    lib.goicp_bounds_groups_trimmed_smem.argtypes = [_i]
+    lib.goicp_bounds_groups_trimmed.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i, _i,
+                                                _i, _vp, _vp, _vp, _vp, _vp]
+    lib.goicp_bounds_groups_trimmed_ctas.restype = _i
+    lib.goicp_bounds_groups_trimmed_ctas.argtypes = [_i, _i]
     return lib
 
 

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Time the nearest-neighbour kernels K1 and K4 of the ``goicp_tpu_torch``
-package found under ROOT, on one GPU::
+"""Time the nearest-neighbour kernels K1 and K4 and the trimmed bound
+kernels K5 and K6 of the ``goicp_tpu_torch`` package found under ROOT, on
+one GPU::
 
     python3 nn_ab.py [ROOT]        # ROOT: a checkout (default: this one)
-    python3 nn_ab.py --routes      # K1 on every launch route, this checkout
+    python3 nn_ab.py --routes      # K1, K5, K6 on every launch route, this checkout
+    python3 nn_ab.py [ROOT] --trace  # also trace ROOT's trimmed screen solve
 
 Run it for two checkouts in one session, in turns (A, B, B, A), to compare
 them on one card.  The shapes are ``chip_smoke.py``'s, on the in-repo bunny
 pair: K1 at each shape of ``k1_shapes``, K4 at the largest R-round bucket
-(8·se3_pop nodes) and with 20,000 targets.  It reports, per K1 shape:
+(8·se3_pop nodes) and with 20,000 targets, K5 at that bucket and K6 at
+se3_pop groups and at 263 groups of a 4,096-point source (h = 0.75·N), each
+unscreened and screened at half the median positive lb (``trim_levels``).
+It reports, per K1 shape:
 
 - ``kernel_ms``: the kernel alone, its inputs packed beforehand, through the
   checkout's C entry point (``goicp_nn_query``, or in checkouts without it
@@ -21,8 +26,12 @@ pair: K1 at each shape of ``k1_shapes``, K4 at the largest R-round bucket
 K1's first two are device time per call (``chip_smoke.device_ms``), the
 rest medians of CUDA events (``chip_smoke.timed_ms``).  ``--routes``
 instead times K1's kernel at each shape on every (target splits, queries
-per thread) route, beside the one ``nn_route`` picks.  Prints one JSON
-line; exits non-zero without CUDA.
+per thread) route, beside the one ``nn_route`` picks, K5 at every count of
+warps per CTA that fits, and K6 at 1, 2 and 3 points per thread.
+``--trace`` then runs ``chip_smoke.py``'s traced trimmed solve on
+``bound_backend="screen"`` (30 s budget; busy share, device time by
+kernel, K5/K6 launches) with ROOT's package.  The last line printed is
+one JSON object; exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -44,8 +53,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("nn_ab: no CUDA device", file=sys.stderr)
         return 2
-    args = [a for a in sys.argv[1:] if a != "--routes"]
-    routes = len(args) < len(sys.argv) - 1
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    routes, trace = "--routes" in sys.argv[1:], "--trace" in sys.argv[1:]
     root = os.path.abspath(args[0] if args else HERE)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -107,7 +116,9 @@ def main() -> int:
             icp_call_ms=smoke.device_ms(call, 100, clock_hz),
             icp_call_host_ms=smoke.timed_ms(call, 50),
         )
+    cases = trimmed_cases(smoke, fused, S, T, dev)
     if routes:
+        out["trimmed_routes"] = trimmed_routes(smoke, fused, cases)
         print(json.dumps(out), flush=True)
         return 0
     se3_pop = max(64, min(4096, int(32e6 / (8 * S.shape[0]))))        # bnb/se3.py auto
@@ -121,8 +132,85 @@ def main() -> int:
             smoke.timed_ms(lambda: fused.min_d2_nodes(srcT, wm, params), 10),
         f"64 nodes x {S.shape[0]} x 20000": smoke.timed_ms(lambda: fused.min_d2_nodes(srcT, wm_g, p_g), 5),
     }
+    out["trimmed"] = {key: smoke.timed_ms(lambda: trimmed_call(fused, c), 10) for key, c in cases.items()}
+    if trace:
+        psrc, ptgt, pR, pt = smoke.load_bunny_partial()
+        out["trace"] = smoke.profile_solve(smoke.Checks(), dev, "trimmed screen solve", psrc, ptgt,
+                                           pR, pt, smoke.TRIM, smoke.PROFILE_TRIM_WALL_S,
+                                           bound_backend="screen")
     print(json.dumps(out), flush=True)
     return 0
+
+
+def trimmed_cases(smoke, fused, S, T, dev):
+    """K5's and K6's inputs, by key: (kernel, srcT, wm, params, h, drop)."""
+    import torch
+
+    from goicp_tpu_torch.nn.agree import trim_levels
+
+    rng = np.random.default_rng(9)
+    se3_pop = max(64, min(4096, int(32e6 / (8 * S.shape[0]))))        # bnb/se3.py auto
+    big = torch.as_tensor(smoke.big_source(), device=dev)
+    wm = fused.pack_targets(T)
+    cases = {}
+    for kind, src, count in (("K5", S, 8 * se3_pop), ("K6", S, se3_pop), ("K6", big, 263)):
+        N = src.shape[0]
+        h = int(round(N * (1.0 - smoke.TRIM)))
+        srcX = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+        if kind == "K5":
+            Rb, tb, af, gt = smoke.node_batch(rng, count, dev)
+            pack = lambda te, tau: fused.pack_params_bounds_trimmed(Rb, tb, af, gt, 0.0, te, tau)  # noqa: E731
+            plain = fused.bounds_nodes_trimmed_plain
+            what = "nodes"
+        else:
+            Rg, t8, af, gt8 = smoke.group_batch(rng, count, dev)
+            pack = lambda te, tau: fused.pack_group_params_bounds_trimmed(Rg, t8, af, gt8, 0.0, te, tau)  # noqa: E731
+            plain = fused.bounds_groups_trimmed_plain
+            what = "groups"
+        p_open = pack(1e30, 1e30)
+        _, lb = plain(srcX, wm, p_open, h=h, drop=N - h)
+        _, te, tau = trim_levels(lb, h, N - h)
+        shape = f"{count} {what} x {N} x {T.shape[0]}, h {h}"
+        cases[f"{kind} {shape} unscreened"] = (kind, srcX, wm, p_open, h, N - h)
+        cases[f"{kind} {shape} screened"] = (kind, srcX, wm, pack(te, tau), h, N - h)
+    return cases
+
+
+def trimmed_call(fused, case, route=0):
+    """One K5 or K6 call on ``case``; ``route`` forces K5's warps per CTA or
+    K6's points per thread (this checkout's helpers)."""
+    kind, srcX, wm, params, h, drop = case
+    if route:
+        fn = fused._k5_kernel if kind == "K5" else fused._k6_kernel
+        return fn(srcX, wm, params, h, drop, route)
+    fn = fused.bounds_nodes_trimmed if kind == "K5" else fused.bounds_groups_trimmed
+    return fn(srcX, wm, params, h=h, drop=drop)
+
+
+def trimmed_routes(smoke, fused, cases):
+    """K5 at every warps-per-CTA count that fits, K6 at 1-3 points per
+    thread (where the point block divides), beside the wrappers' picks."""
+    out = {}
+    for key, case in cases.items():
+        kind, srcX, wm, params, _, _ = case
+        Np, tq = srcX.shape[1], fused._pick_tile(srcX.shape[1], fused.TQB)
+        if kind == "K5":
+            picked = fused.k5_plan(params.shape[0], Np, wm.shape[0])["warps"]
+            routes = []
+            for w in range(1, 9):
+                try:
+                    fused.k5_plan(params.shape[0], Np, wm.shape[0], w)
+                    routes.append(w)
+                except RuntimeError:
+                    pass
+            label = "warps per CTA"
+        else:
+            picked = fused.k6_qr(tq)
+            routes = [q for q in (1, 2, 3) if tq % (32 * q) == 0 and 64 <= tq // q <= 384]
+            label = "points per thread"
+        out[key] = dict(picked=picked, route=label, ms={
+            r: smoke.timed_ms(lambda: trimmed_call(fused, case, r), 5) for r in routes})
+    return out
 
 
 def smoke_rotations(rng, n, dev):

@@ -215,16 +215,15 @@ def _groups(rng, G, n, nt, dev):
     return srcT, fused.pack_targets(tgt), R, t8, af, gt8
 
 
-# (5, 4096, 700): Np ≥ 4,096 puts K6's [16, Np] scratch in global memory
+# (5, 4096, 700): the Np ≥ 4,096 shape (a global scratch, as every K6 launch)
 @pytest.mark.parametrize("G,n,nt", [(5, 300, 700), (263, 1518, 1797), (5, 4096, 700)])
 @pytest.mark.parametrize("screen", [False, True])
 def test_k6_bounds_groups_trimmed(cuda, G, n, nt, screen):
-    from goicp_tpu_torch.nn import kernels
-
     rng = np.random.default_rng(6)
     srcT, wm, R, t8, af, gt8 = _groups(rng, G, n, nt, cuda)
     Np = srcT.shape[1]
-    assert bool(kernels.lib().goicp_bounds_groups_trimmed_smem(Np)) == (Np < 4096)
+    tq = fused._pick_tile(Np, fused.TQB)
+    assert fused._k6_ctas(cuda.index or 0, tq, fused.k6_qr(tq)) > 0
     h = int(round(0.75 * n))
     drop = n - h
     thresh, te, tau = 1e30, 1e30, 1e30
@@ -255,3 +254,156 @@ def test_k7_bounds_groups(cuda, G, n, nt, screen):
     torch.cuda.synchronize()
     ub_p, lb_p = fused.bounds_groups_plain(srcT, wm, params)
     _agree_screened(ub, lb, ub_p, lb_p, thresh, thresh, group=8, screen=screen)
+
+
+# --- K5 and K6 at every point-block size, batch, screen mode, h and route ---
+# n = 100, 1,000, 1,518, 8,192: Np = 128, 1,024, 1,536, 8,192 and tq = 128,
+# 256, 384, 256.  Batches of 37 and 1,001 nodes or groups are no multiple of
+# what a CTA walks; 2,049 nodes spill past one wave of warps.
+
+
+def _trimmed_levels(plain, args, h, drop, mode):
+    """``(thresh, thresh', τ)`` of a case: "open" screens nothing, "screen"
+    puts thresh at half the median positive lb, "masked" gives every row
+    thresh' = -inf (as ``bnb/se3_eval.py`` masks rows)."""
+    if mode == "open":
+        return 1e30, 1e30, 1e30
+    if mode == "masked":
+        return 0.0, -float("inf"), 0.01
+    _, lb = plain(*args(1e30, 1e30), h=h, drop=drop)
+    return trim_levels(lb, h, drop)
+
+
+def _trimmed_agree(kernel, plain, args, h, drop, mode, group=1):
+    thresh, te, tau = _trimmed_levels(plain, args, h, drop, mode)
+    ub, lb = kernel(*args(te, tau))
+    torch.cuda.synchronize()
+    ub_p, lb_p = plain(*args(te, tau), h=h, drop=drop)
+    if mode == "masked":
+        assert bool((ub == 1e30).all()) and torch.equal(lb, lb_p)
+        return
+    _agree_screened(ub, lb, ub_p, lb_p, thresh, te, group=group, screen=mode == "screen")
+
+
+def _source(rng, n, dev, dup):
+    """A cloud of n points; ``dup``: 10 copies of each of n/10 points, so
+    equal terms sit at the bisection's threshold."""
+    src = _cloud(rng, n, dev)
+    return src[torch.arange(n, device=dev) % max(1, n // 10)] if dup else src
+
+
+K5_CASES = [(37, 100, 700), (1001, 1000, 1797), (2049, 1518, 1797), (37, 8192, 1797),
+            (37, 1518, 6144), (37, 1518, 6145), (16, 1518, 20000)]
+
+
+# targets resident (Mp ≤ 6,144) and read from global memory (6,145 and
+# 20,000 targets), Np = 8,192 (the bound_points cap)
+@pytest.mark.parametrize("B,n,nt", K5_CASES)
+@pytest.mark.parametrize("mode", ["open", "screen", "masked"])
+def test_k5_shapes(cuda, B, n, nt, mode):
+    rng = np.random.default_rng(9)
+    src, tgt = _source(rng, n, cuda, False), _cloud(rng, nt, cuda)
+    R, t = _nodes(rng, B, cuda)
+    t[::2] += 1.5
+    af = torch.as_tensor(rng.uniform(0, 0.3, B).astype(np.float32), device=cuda)
+    gt = torch.as_tensor(rng.uniform(0, 0.05, B).astype(np.float32), device=cuda)
+    srcT = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+    wm = fused.pack_targets(tgt)
+    plan = fused.k5_plan(B, srcT.shape[1], wm.shape[0])
+    assert plan["targets_resident"] == (wm.shape[0] <= 6144)
+    h = int(round(0.75 * n))
+
+    def args(te, tau):
+        return srcT, wm, fused.pack_params_bounds_trimmed(R, t, af, gt, 0.0, te, tau)
+
+    _trimmed_agree(lambda *a: fused.bounds_nodes_trimmed(*a, h=h, drop=n - h),
+                   fused.bounds_nodes_trimmed_plain, args, h, n - h, mode)
+
+
+# h close to N and h small, on a source of duplicated points.  At h = 5 a
+# screened lb = Σl̃ - drop·τ (τ = 2·thresh/h) cancels ~2N/h-fold, so its
+# reduction-order error outgrows the rtol: h = 5 runs unscreened and
+# masked, and the screen at a small h runs at h = 50.
+@pytest.mark.parametrize("h,modes", [(999, ("open", "screen")), (50, ("open", "screen")),
+                                     (5, ("open", "masked")), (750, ("open", "screen"))],
+                         ids=["h=n-1", "h=50", "h=5", "h=0.75n"])
+@pytest.mark.parametrize("kind", ["k5", "k6"])
+def test_trimmed_h_and_duplicates(cuda, h, modes, kind):
+    rng = np.random.default_rng(10)
+    n, nt, count = 1000, 1797, 263
+    src = _source(rng, n, cuda, dup=True)
+    tgt = _cloud(rng, nt, cuda)
+    srcT = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+    wm = fused.pack_targets(tgt)
+    if kind == "k5":
+        R, t = _nodes(rng, count, cuda)
+        t[::2] += 1.5
+        af = torch.as_tensor(rng.uniform(0, 0.3, count).astype(np.float32), device=cuda)
+        gt = torch.as_tensor(rng.uniform(0, 0.05, count).astype(np.float32), device=cuda)
+
+        def args(te, tau):
+            return srcT, wm, fused.pack_params_bounds_trimmed(R, t, af, gt, 0.0, te, tau)
+
+        kernel, plain, group = fused.bounds_nodes_trimmed, fused.bounds_nodes_trimmed_plain, 1
+    else:
+        _, _, R, t8, af, gt8 = _groups(rng, count, 10, 10, cuda)
+
+        def args(te, tau):
+            return srcT, wm, fused.pack_group_params_bounds_trimmed(R, t8, af, gt8, 0.0, te, tau)
+
+        kernel, plain, group = fused.bounds_groups_trimmed, fused.bounds_groups_trimmed_plain, 8
+    for mode in modes:
+        _trimmed_agree(lambda *a: kernel(*a, h=h, drop=n - h), plain, args, h, n - h, mode,
+                       group=group)
+
+
+K6_CASES = [(5, 100, 700), (1001, 1000, 1797), (263, 1518, 1797), (5, 8192, 700)]
+
+
+@pytest.mark.parametrize("G,n,nt", K6_CASES)
+@pytest.mark.parametrize("mode", ["open", "screen", "masked"])
+def test_k6_shapes(cuda, G, n, nt, mode):
+    rng = np.random.default_rng(11)
+    srcT, wm, R, t8, af, gt8 = _groups(rng, G, n, nt, cuda)
+    h = int(round(0.75 * n))
+
+    def args(te, tau):
+        return srcT, wm, fused.pack_group_params_bounds_trimmed(R, t8, af, gt8, 0.0, te, tau)
+
+    _trimmed_agree(lambda *a: fused.bounds_groups_trimmed(*a, h=h, drop=n - h),
+                   fused.bounds_groups_trimmed_plain, args, h, n - h, mode, group=8)
+
+
+# every launch route: K5's warps per CTA, K6's points per thread
+@pytest.mark.parametrize("route", [("k5", w) for w in range(1, 9)]
+                         + [("k6", qr) for qr in (1, 2, 3)])
+def test_trimmed_routes(cuda, route):
+    kind, r = route
+    rng = np.random.default_rng(12)
+    n, nt, count = 1518, 1797, 301
+    h = int(round(0.75 * n))
+    if kind == "k5":
+        src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
+        R, t = _nodes(rng, count, cuda)
+        t[::2] += 1.5
+        af = torch.as_tensor(rng.uniform(0, 0.3, count).astype(np.float32), device=cuda)
+        gt = torch.as_tensor(rng.uniform(0, 0.05, count).astype(np.float32), device=cuda)
+        srcT = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+        wm = fused.pack_targets(tgt)
+        assert fused.k5_plan(count, srcT.shape[1], wm.shape[0], r)["warps"] == r
+
+        def args(te, tau):
+            return srcT, wm, fused.pack_params_bounds_trimmed(R, t, af, gt, 0.0, te, tau)
+
+        kernel = lambda *a: fused._k5_kernel(*a, h, n - h, warps=r)  # noqa: E731
+        plain, group = fused.bounds_nodes_trimmed_plain, 1
+    else:
+        srcT, wm, R, t8, af, gt8 = _groups(rng, count, n, nt, cuda)
+
+        def args(te, tau):
+            return srcT, wm, fused.pack_group_params_bounds_trimmed(R, t8, af, gt8, 0.0, te, tau)
+
+        kernel = lambda *a: fused._k6_kernel(*a, h, n - h, qr=r)  # noqa: E731
+        plain, group = fused.bounds_groups_trimmed_plain, 8
+    for mode in ("open", "screen"):
+        _trimmed_agree(kernel, plain, args, h, n - h, mode, group=group)
