@@ -12,9 +12,10 @@ Phases, each of which fails the run:
 3. each kernel against its plain PyTorch version on the card, on random
    inputs and at the bunny solves' shapes, with kernel, plain, bound and
    (K1, K3, K4) library times: K1 nearest neighbour at each of its shapes
-   on the solve's path (in-round refine, coarse and full multistart; device
-   time per call, and on a doubled target cloud whose ties the earlier twin
-   must win); K3 grouped distances; K2 screened bounds and K4 per-node
+   on the solve's path (in-round refine, coarse and full multistart) and at
+   the CLI's modes 0/1 on the whole bunny (40,256 × 40,256, its ring route;
+   device time per call, and on a doubled target cloud whose ties the
+   earlier twin must win); K3 grouped distances; K2 screened bounds and K4 per-node
    distances at the largest R-round bucket (K4 also on its ring route, above
    6,144 targets); K5 screened trimmed bounds there too (and on its route
    above 6,144 targets); K6 screened trimmed grouped bounds at se3_pop
@@ -36,9 +37,29 @@ Phases, each of which fails the run:
    trimmed solve on ``bound_backend="screen"`` (each trimmed one with a 30 s
    budget) once more under ``torch.profiler`` (device activity), for the
    device's busy share of each solve, its device time by kernel and the
-   launches of K5 and K6.
+   launches of K5 and K6;
+7. the CLI and the grid and plane paths, with inputs written under
+   ``chiprun_out/cli/``: 7a ``goicp_tpu_torch.cli.main`` in mode 4 with the
+   plane metric at the headline's 1,518 / 1,797 points (K1, K2, K3 must
+   launch; normals on the card; the artifacts); 7b modes 1 and 2 on the
+   whole 40,256-point bunny moved by 10° and 3 % of its extent, each on the
+   point and the plane metric (mode 1 on K1 at 40,256 × 40,256, mode 2 on
+   a 256³ EDT grid with no K1; the plane runs must recover the pose, mode 1
+   to 1e-3 of the extent, mode 2 to one cell; the point runs, which stall
+   short of it, must match the port's CPU path on the same TOMLs,
+   ``CPU_WITNESS``); 7c a
+   solve through ``register`` above ``mxu_max`` (grid bounds, grid ICP, no
+   K2-K6); the times of the new plain-PyTorch stages (EDT build, normals,
+   grid bounds of one round, one plane step); 7d the 300-point subsets of
+   5b on the card and on the CPU path on the "grid", "exact" and plane
+   paths.
 
-Each solve's launch counts are reset just before it and read just after;
+``python3 chip_smoke.py --witness`` builds the kernels and runs only 7b's
+point-metric TOMLs, on the port's CPU path and on the card (minutes on the
+CPU), for ``CPU_WITNESS``.
+
+Each solve's (and each CLI run's) launch counts are reset just before it
+and read just after;
 K1's are also counted by (queries, targets), and the ``kernels`` line has a
 K1 row per shape with that shape's launches in the certified solve.
 The last lines are the ``kernels`` JSON line and the device JSON line.
@@ -67,6 +88,7 @@ MSE_FACTOR = 0.5                # mse_threshold = MSE_FACTOR · mse at the true 
 TRIM = 0.25                     # trim_fraction of the partial-overlap solves
 SCREEN_WALL_S = 30.0            # BnB budget of the trimmed solve on the screen backend
 PROFILE_TRIM_WALL_S = 30.0      # BnB budget of the traced trimmed solve (--profile)
+K1_RESIDENT_MAX = 6144          # csrc/nn_min_d2.cu kResidentMax: K1's targets in shared memory
 
 
 def smi(query: str) -> str:
@@ -136,7 +158,7 @@ class Checks:
 def load_bunny():
     """The in-repo bunny pair: target = rotated_bunny.ply, source =
     Rᵀ(target − t), each subsampled with its own seed, both scaled by one
-    factor into [−1, 1]³."""
+    factor into [−1, 1]³; returns (source, target, R, t, that factor)."""
     from goicp_tpu_torch.io import read_ply
 
     tgt_full = read_ply(os.path.join(HERE, "data_generated", "rotated_bunny.ply"))
@@ -151,7 +173,7 @@ def load_bunny():
     scale = 1.0 / max(np.abs(src).max(), np.abs(tgt).max())
     return (
         (src * scale).astype(np.float32), (tgt * scale).astype(np.float32),
-        R.astype(np.float32), (t * scale).astype(np.float32), n,
+        R.astype(np.float32), (t * scale).astype(np.float32), scale,
     )
 
 
@@ -195,10 +217,13 @@ def k1_shapes(N: int, NT: int):
     return (("K1 refine", 8, N, NT), ("K1 coarse", 64, 512, 512), ("K1 multistart", 64, N, NT))
 
 
-def check_k1(chk, dev, S, T, rng, clock_hz):
-    """K1 at each shape of ``k1_shapes``, on random inputs and on the
-    shape's targets twice over (every nearest target has a twin, and the
-    earlier must win); tol 0.  Returns one record per shape."""
+def check_k1(chk, dev, S, T, rng, clock_hz, cli_q, cli_t):
+    """K1 at each shape of ``k1_shapes`` and at the CLI's modes 0/1 on the
+    whole bunny (``cli_q`` × ``cli_t``: 7b's source and target, 40,256 ×
+    40,256, above the 6,144 targets that stay resident in shared memory, so
+    on the ring route), on random inputs and on the shape's targets twice
+    over (every nearest target has a twin, and the earlier must win);
+    tol 0.  Returns one record per shape."""
     import torch
 
     from goicp_tpu_torch.geo.rotation import axis_angle_rotation
@@ -218,13 +243,18 @@ def check_k1(chk, dev, S, T, rng, clock_hz):
     q_r, t_r = torch.rand(300, 3, device=dev) - 0.5, torch.rand(700, 3, device=dev) - 0.5
     agree("random 300x700", q_r, t_r, *fused.nearest_neighbor_mxu(q_r, t_r))
     recs = {}
-    for key, poses, n, nt in k1_shapes(S.shape[0], T.shape[0]):
-        Sx = S[torch.as_tensor(np.sort(rng.choice(S.shape[0], n, replace=False)), device=dev)]
-        Tx = T[torch.as_tensor(np.sort(rng.choice(T.shape[0], nt, replace=False)), device=dev)]
-        Rp = axis_angle_rotation(torch.as_tensor(
-            rng.uniform(-0.2, 0.2, (poses, 3)).astype(np.float32), device=dev))
-        tp = torch.as_tensor(rng.uniform(-0.02, 0.02, (poses, 3)).astype(np.float32), device=dev)
-        Q = (Sx[None] @ Rp.transpose(1, 2) + tp[:, None]).reshape(-1, 3).contiguous()
+    shapes = [*k1_shapes(S.shape[0], T.shape[0]), ("K1 cli", 1, cli_q.shape[0], cli_t.shape[0])]
+    for key, poses, n, nt in shapes:
+        if key == "K1 cli":           # the first iteration's queries: the source as loaded
+            Q, Tx = cli_q, cli_t
+        else:
+            Sx = S[torch.as_tensor(np.sort(rng.choice(S.shape[0], n, replace=False)), device=dev)]
+            Tx = T[torch.as_tensor(np.sort(rng.choice(T.shape[0], nt, replace=False)), device=dev)]
+            Rp = axis_angle_rotation(torch.as_tensor(
+                rng.uniform(-0.2, 0.2, (poses, 3)).astype(np.float32), device=dev))
+            tp = torch.as_tensor(rng.uniform(-0.02, 0.02, (poses, 3)).astype(np.float32),
+                                 device=dev)
+            Q = (Sx[None] @ Rp.transpose(1, 2) + tp[:, None]).reshape(-1, 3).contiguous()
         t4 = fused.pack_nn_targets(Tx)
         name = f"{key[3:]} {poses}x{n} queries x {nt} targets"
         err = agree(name, Q, Tx, *fused.nearest_neighbor_mxu(Q, Tx, packed=t4))
@@ -233,17 +263,27 @@ def check_k1(chk, dev, S, T, rng, clock_hz):
         agree(f"{key[3:]} against the doubled targets", Q, T2, d2, idx)
         chk.expect(bool((idx < nt).all()), f"K1 {key[3:]}: the earlier twin wins every tie")
         route = fused.nn_route(Q.shape[0], t4.shape[0], fused._sm_count(Q.device.index))
-        ms = device_ms(lambda: fused.nearest_neighbor_mxu(Q, Tx, packed=t4), 100, clock_hz)
-        call = timed_ms(lambda: fused.nearest_neighbor_mxu(Q, Tx, packed=t4), 20)
-        plain = device_ms(lambda: nearest_neighbor(Q, Tx), 5, clock_hz)
-        lib = device_ms(lambda: torch.cdist(Q, Tx).min(dim=1), 20, clock_hz)
+        big = key == "K1 cli"         # ~1 ms a call: fewer reps
+        if big:
+            chk.expect(t4.shape[0] > K1_RESIDENT_MAX,
+                       f"K1 cli: {t4.shape[0]} packed targets take the ring route "
+                       f"(> {K1_RESIDENT_MAX} resident)")
+        ms = device_ms(lambda: fused.nearest_neighbor_mxu(Q, Tx, packed=t4), 10 if big else 100,
+                       clock_hz)
+        call = timed_ms(lambda: fused.nearest_neighbor_mxu(Q, Tx, packed=t4), 5 if big else 20)
+        # the plain version at the CLI shape is ~1,600 launches a call, more
+        # than a stream queues behind device_ms's sleep: CUDA events instead
+        plain = (timed_ms(lambda: nearest_neighbor(Q, Tx), 2) if big
+                 else device_ms(lambda: nearest_neighbor(Q, Tx), 5, clock_hz))
+        lib = device_ms(lambda: torch.cdist(Q, Tx).min(dim=1), 3 if big else 20, clock_hz)
         nq = Q.shape[0]
         b, by = bound_ms(4.0 * (3 * nq + 3 * nt + 2 * nq), 7.0 * nq * nt, clock_hz)
         recs[key] = _rec(
             f"{key} nearest_neighbor_mxu (exact NN + argmin), {poses} x {n} queries x {nt} targets",
             "goicp_tpu_torch/csrc/nn_min_d2.cu", "goicp_tpu/nn/mxu.py:152", err, ms, plain, b, by,
             lib, f"{nq} queries x {nt} targets", library_call="torch.cdist + min (two calls)",
-            shape_key=[nq, nt], launch_route=dict(splits=route[0], queries_per_thread=route[1]),
+            shape_key=[nq, nt], launch_route=dict(splits=route[0], queries_per_thread=route[1],
+                                                  targets_resident=t4.shape[0] <= K1_RESIDENT_MAX),
             call_ms=call, timing="device time per call (device_ms), targets packed once")
         report(key, recs[key])
     return recs
@@ -622,7 +662,10 @@ def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop, h_trim, big_src):
     rng = np.random.default_rng(7)
     S = torch.as_tensor(src, device=dev)
     T = torch.as_tensor(tgt, device=dev)
-    rec = check_k1(chk, dev, S, T, rng, clock_hz)
+    tgt_full = bunny_full()[0]
+    rec = check_k1(chk, dev, S, T, rng, clock_hz,
+                   torch.as_tensor(moved_bunny(tgt_full)[0], device=dev),
+                   torch.as_tensor(tgt_full, dtype=torch.float32, device=dev))
     rec["K3"] = check_k3(chk, dev, S, T, rng, clock_hz, se3_pop)
     report("K3", rec["K3"])
     rec["K2"] = check_k2(chk, dev, S, T, rng, clock_hz, 8 * se3_pop)
@@ -750,8 +793,8 @@ def solve_bunny(chk, dev, label, src, tgt, R_gt, t_gt, expect, trim: float = 0.0
 
 def card_vs_cpu(chk, dev, label, src, tgt, params, expect=()):
     """One small solve on the card and on the CPU path, which must agree on
-    the pose (1e-4), the sse (rtol 1e-5) and the rounds; ``expect`` lists
-    kernels that must have launched in the card's solve."""
+    the pose (1e-4), the sse (rtol 1e-5), the rounds and the nodes;
+    ``expect`` lists kernels that must have launched in the card's solve."""
     import torch
 
     from goicp_tpu_torch import register
@@ -764,7 +807,8 @@ def card_vs_cpu(chk, dev, label, src, tgt, params, expect=()):
     launches = dict(fused.launches)
     rc = register(src, tgt, params, device="cpu")
     dR = float(np.abs(rg.transform.R - rc.transform.R).max())
-    ok = dR < 1e-4 and abs(rg.sse - rc.sse) <= 1e-5 * abs(rc.sse) and rg.rounds == rc.rounds
+    ok = (dR < 1e-4 and abs(rg.sse - rc.sse) <= 1e-5 * abs(rc.sse) and rg.rounds == rc.rounds
+          and rg.rot_nodes == rc.rot_nodes)
     chk.expect(ok, f"{label} card vs CPU: |dR| {dR:.3g}, sse {rg.sse:.7g} vs {rc.sse:.7g}, "
                    f"rounds {rg.rounds} vs {rc.rounds}, nodes {rg.rot_nodes} vs {rc.rot_nodes}")
     for k in expect:
@@ -860,12 +904,465 @@ def profile_solve(chk, dev, label, src, tgt, R_gt, t_gt, trim: float = 0.0,
     return info
 
 
+CLI_WALL_S = 30.0               # BnB budget of the CLI's mode-4 solve and the grid solve
+
+# 7b's point-metric runs on the port's CPU path, the witness of the card's
+# (``python3 chip_smoke.py --witness`` on the H100 machine's CPU, 8 threads;
+# mode 1 took 983 s there).  The card must end within WITNESS_ITERS
+# iterations of them and within WITNESS_RMS of their pose (RMS displacement
+# of the source; the card's runs were 2.5e-7 and 2.8e-8 from them, the
+# stall itself 6.75e-4 and 4.16e-3 from the true pose).
+CPU_WITNESS = {
+    "mode 1": dict(icp_iters=53, rms=0.0006751772587839814,
+                R=[[0.9853625297546387, -0.142537459731102, 0.09352248162031174],
+                   [0.14660879969596863, 0.9884591102600098, -0.03817742317914963],
+                   [-0.087001271545887, 0.05132972449064255, 0.9948866367340088]],
+                t=[0.005034530069679022, -0.002682269085198641, 0.005478300619870424]),
+    "mode 2": dict(icp_iters=99, rms=0.004162753476224238,
+                R=[[0.9817355275154114, -0.1708204746246338, 0.08378029614686966],
+                   [0.17259475588798523, 0.9848902225494385, -0.014357254840433598],
+                   [-0.08006177842617035, 0.028554998338222504, 0.9963826537132263]],
+                t=[0.00339655508287251, -0.0032234119717031717, 0.0034434758126735687]),
+}
+WITNESS_ITERS, WITNESS_RMS = 2, 1e-5
+
+
+class Spy:
+    """Replaces ``module.name`` by a wrapper that synchronises the card
+    around each call, times it and keeps its result; ``restore`` puts the
+    original back."""
+
+    def __init__(self, module, name, method: bool = False):
+        import torch
+
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+        self.calls = []
+        spy = self
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = spy.orig(*a, **k)
+            torch.cuda.synchronize()
+            spy.calls.append((time.perf_counter() - t0, a, out))
+            return out
+
+        setattr(module, name, wrapper)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def bunny_full():
+    """The whole rotated_bunny.ply (40,256 points) as the target, the source
+    Rᵀ(target − t) for its ground truth, and that truth (float64)."""
+    from goicp_tpu_torch.io import read_ply
+
+    tgt = read_ply(os.path.join(HERE, "data_generated", "rotated_bunny.ply"))
+    with open(os.path.join(HERE, "data_generated", "rotated_bunny_gt.toml"), "rb") as f:
+        gt = tomllib.load(f)
+    R = np.asarray(gt["rotation"], np.float64)
+    t = np.asarray(gt["translation"], np.float64)
+    return tgt, (tgt.astype(np.float64) - t) @ R, R, t
+
+
+def moved_bunny(tgt_full):
+    """7b's source: the whole target moved by 10° about (1, 2, 3) and 3 % of
+    its extent, so that target = Rs·source + ts.  Returns (source as f32,
+    Rs, ts, the extent)."""
+    import torch
+
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation
+
+    axis = np.float64([1.0, 2.0, 3.0]) / np.sqrt(14.0)
+    Rs = axis_angle_rotation(torch.as_tensor(np.radians(10.0) * axis)).numpy()
+    ext = float(np.linalg.norm(tgt_full.max(0) - tgt_full.min(0)))
+    ts = 0.03 * ext * np.float64([2.0, -1.0, 2.0]) / 3.0
+    return ((tgt_full.astype(np.float64) - ts) @ Rs).astype(np.float32), Rs, ts, ext
+
+
+def runs_7b(base):
+    """Writes 7b's source PLY and its four TOMLs (modes 1 and 2, each on the
+    point and the plane metric; from the identity, ``mse_threshold`` 1e-10,
+    so ICP runs until it stalls or 128 iterations).  Returns ``[(mode,
+    metric, toml, name)]``, Rs, ts, the extent and the source as read back."""
+    from goicp_tpu_torch.io import read_ply, write_ply
+
+    tgt_ply = os.path.join(HERE, "data_generated", "rotated_bunny.ply")
+    src_b, Rs, ts, ext = moved_bunny(bunny_full()[0])
+    src_ply = os.path.join(base, "bunny_moved_40256.ply")
+    write_ply(src_ply, src_b)
+    runs = []
+    for mode, metric in ((1, "point"), (1, "plane"), (2, "point"), (2, "plane")):
+        toml = scenario_toml(os.path.join(base, f"mode{mode}_{metric}.toml"), tgt_ply,
+                             src_ply, mode, 1.0, 1.0, 1e-10, icp_metric=metric)
+        runs.append((mode, metric, toml, f"mode {mode}" + (" plane" if metric == "plane" else "")))
+    return runs, Rs, ts, ext, read_ply(src_ply).astype(np.float64)
+
+
+def cpu_witness(chk, dev):
+    """``--witness``: 7b's point-metric runs of modes 1 and 2 on the port's
+    CPU path and then on the card (K1 bit-equal to its plain version makes
+    the two differ only in the order of the Procrustes reductions): their
+    iterations, poses and walls, and the RMS displacement of the source
+    between the two poses.  Writes ``chiprun_out/chip_smoke_witness.json``;
+    ``CPU_WITNESS`` holds its CPU runs."""
+    import torch
+
+    from goicp_tpu_torch import cli
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    base = os.path.join(OUT_DIR, "cli")
+    os.makedirs(base, exist_ok=True)
+    runs, Rs, ts, ext, src_b = runs_7b(base)
+    spies = [Spy(cli, "run_scenario")]
+    out = dict(threads=torch.get_num_threads(), extent=ext)
+    try:
+        for mode, metric, toml, name in runs:
+            if metric != "point":
+                continue
+            res = {}
+            for where in ("cpu", "cuda"):
+                o, info = run_cli(chk, f"witness {name} on {where}", toml,
+                                  os.path.join(base, f"witness_{where}_mode{mode}"), spies, where)
+                rot, terr, rms = pose_error(o["R"], o["t"], Rs, ts, src_b)
+                res[where] = dict(icp_iters=int(o["icp_iters"]), R=np.asarray(o["R"]).tolist(),
+                                  t=np.asarray(o["t"]).tolist(), rot_err_deg=rot, rms=rms,
+                                  main_wall_s=info["main_wall_s"], launches=info["launches"])
+            between = pose_error(res["cuda"]["R"], res["cuda"]["t"], np.asarray(res["cpu"]["R"]),
+                                 np.asarray(res["cpu"]["t"]), src_b)
+            out[name] = dict(res, rot_between_deg=between[0], rms_between=between[2])
+            print(f"witness {name}: cpu {res['cpu']['icp_iters']} iterations, RMS {res['cpu']['rms']:.4g}; "
+                  f"card {res['cuda']['icp_iters']} iterations, RMS {res['cuda']['rms']:.4g}; "
+                  f"between {between[2]:.3g} ({between[0]:.3g} deg)", flush=True)
+    finally:
+        for sp in spies:
+            sp.restore()
+    with open(os.path.join(OUT_DIR, "chip_smoke_witness.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def scenario_toml(path, target, source, mode, subsample, resize, mse, **tpu):
+    """A scenario TOML of the reference's schema; ``tpu`` fills ``[tpu]``.
+    The translation cube is ±0.5, the solver's default."""
+    lines = ["[io]", f"target = {json.dumps(target)}", f"source = {json.dumps(source)}",
+             'output = "output.toml"', 'visualization = "viz.ply"', "", "[params]",
+             f"mode = {mode}", f"subsample = {float(subsample)!r}",
+             f"mse_threshold = {float(mse)!r}", f"resize = {float(resize)!r}", "",
+             "[params.translation]",
+             *(f"{a}{b} = {v}" for a in "xyz" for b, v in (("min", -0.5), ("max", 0.5))),
+             "", "[tpu]", *(f"{k} = {json.dumps(v)}" for k, v in tpu.items())]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def pose_error(R, t, R_gt, t_gt, pts):
+    """Rotation error in degrees, translation error, and the RMS distance
+    between the source points moved by the two poses."""
+    R, t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+    cos = np.clip((np.trace(R.T @ R_gt) - 1.0) / 2.0, -1.0, 1.0)
+    d = pts @ (R - R_gt).T + (t - t_gt)
+    return (float(np.degrees(np.arccos(cos))), float(np.linalg.norm(t - t_gt)),
+            float(np.sqrt(np.mean(np.sum(d * d, axis=1)))))
+
+
+def run_cli(chk, label, toml, outdir, spies, device: str = "cuda"):
+    """``goicp_tpu_torch.cli.main`` on the card (or on the CPU path), with
+    the launch counts of exactly this run; returns what ``run_scenario``
+    returned and the counts."""
+    import torch
+
+    from goicp_tpu_torch import cli
+    from goicp_tpu_torch.nn import fused
+
+    for sp in spies:
+        sp.calls.clear()
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main([toml, "--output", outdir, "--device", device])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = spies[0].calls[-1][2]
+    with open(out["output_toml"], "rb") as f:
+        doc = tomllib.load(f)
+    chk.expect(np.allclose(doc["result"]["rotation"], out["R"], rtol=0, atol=1e-7)
+               and np.allclose(doc["result"]["translation"], out["t"], rtol=0, atol=1e-7),
+               f"{label}: output.toml parses and holds the returned R and t")
+    return out, dict(rc=rc, main_wall_s=wall, launches=dict(fused.launches),
+                     k1_launches_by_shape={f"{q}x{t}": n for (q, t), n
+                                           in sorted(fused.nn_launch_shapes.items())})
+
+
+def plain_stages(dev, tgt_full, src_h, runs, clock_hz):
+    """The new paths' plain-PyTorch stages at the shapes phase 7 gives them,
+    each with its time (CUDA events), how often phase 7's runs ran it, and
+    its bound: the EDT build at 256³ of the whole cloud (one per mode-2
+    run), the normals of the whole cloud, the grid bounds of one R-round at
+    the largest bucket (one per round of the grid solve) and one plane step
+    at the refine shape (one per plane ICP iteration of the mode-4 run)."""
+    import torch
+
+    from goicp_tpu_torch.geo.normals import estimate_normals
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation
+    from goicp_tpu_torch.icp.solver import _plane_update
+    from goicp_tpu_torch.nn.grid import build_distance_grid
+    from goicp_tpu_torch.bnb.se3_eval import evaluate_se3_nodes
+
+    rng = np.random.default_rng(9)
+    T = torch.as_tensor(tgt_full, device=dev)
+    nt = T.shape[0]
+    out = {}
+    n = 256
+    out["EDT build 256^3"] = dict(
+        ms=timed_ms(lambda: build_distance_grid(T, n=n, method="edt", with_index=True), 2),
+        per_run=1, run="7b mode 2 (each metric)", shape=f"{nt} targets, {n}^3 cells, with the index",
+        # three min-plus passes: n^4 candidates each, an add and a compare
+        bound=bound_ms(4.0 * 3 * nt + 12.0 * n ** 3, 3 * 2.0 * n ** 4, clock_hz))
+    out["normals"] = dict(
+        ms=timed_ms(lambda: estimate_normals(T, k=16), 3), per_run=1, run="7b mode 2 plane",
+        shape=f"{nt} points, k = 16",
+        # |q|² − 2q·p + |p|² per pair (~8 operations), then 16-point covariances
+        bound=bound_ms(4.0 * 6 * nt, 8.0 * nt * nt, clock_hz))
+    grid = build_distance_grid(torch.as_tensor(tgt_full * 1.0, device=dev), n=n,
+                               expand=1.5, method="edt", with_index=True)
+    M, N = 21080, src_h.shape[0]
+    S = torch.as_tensor(src_h, device=dev)
+    R = axis_angle_rotation(torch.as_tensor(rng.uniform(-np.pi, np.pi, (M, 3)).astype(np.float32),
+                                            device=dev))
+    tc = torch.as_tensor(rng.uniform(-0.3, 0.3, (M, 3)).astype(np.float32), device=dev)
+    ang = torch.full((M,), 0.1, device=dev)
+    tspan = torch.full((M,), 0.05, device=dev)
+    mask = torch.ones(M, dtype=torch.bool, device=dev)
+    norms = torch.linalg.vector_norm(S, dim=1)
+    out["grid bounds of one R-round"] = dict(
+        ms=timed_ms(lambda: evaluate_se3_nodes(S, norms, grid, T[:1], 0.0, R, ang, tc, tspan,
+                                               mask, lookup="nearest", backend="grid"), 5),
+        per_run=runs["grid solve"]["rounds"], run="7c grid solve (rounds)",
+        shape=f"{M} nodes x {N} points, nearest lookup",
+        # a transform, a lookup and the deflated terms: ~40 operations per pair
+        bound=bound_ms(4.0 * (3 * N + 16 * M + 2 * M) + 4.0 * n ** 3, 40.0 * M * N, clock_hz))
+    B = 8
+    pts = (S[None] @ R[:B].transpose(1, 2) + tc[:B, None]).contiguous()
+    dst = pts + 0.01
+    nrm = torch.nn.functional.normalize(torch.ones_like(pts), dim=-1)
+    out["plane step"] = dict(
+        ms=timed_ms(lambda: _plane_update(pts, dst, nrm, None), 20),
+        per_run=runs["mode 4 plane"]["icp_iters"], run="7a mode 4 plane (ICP iterations)",
+        shape=f"{B} poses x {N} points",
+        # the 6x6 normal equations: 21 + 6 products per point, and the solve
+        bound=bound_ms(4.0 * 9 * B * N, 2.0 * 27 * B * N, clock_hz))
+    for k, v in out.items():
+        v["bound_ms"], v["bound_by"] = v.pop("bound")
+        print(f"plain stage {k}: {v['ms']:.4g} ms, bound {v['bound_ms']:.4g} ms ({v['bound_by']}), "
+              f"{v['per_run']} per run of {v['run']}, at {v['shape']}", flush=True)
+    return out
+
+
+def cli_phase(chk, dev, src_h, R_h, t_h, scale_h, psrc, ptgt, pR, pt, clock_hz):
+    """Phase 7: the CLI and the new paths.  7a mode 4 with the plane metric
+    through ``cli.main`` at the headline's sizes; 7b modes 1 and 2 at the
+    whole bunny's width; 7c a solve above ``mxu_max`` through ``register``
+    (grid bounds, grid ICP); 7d card against CPU on the grid, exact and
+    plane paths.  Inputs are written under ``chiprun_out/cli/``."""
+    import torch
+
+    from goicp_tpu_torch import cli, register
+    from goicp_tpu_torch.bnb import se3, solver
+    from goicp_tpu_torch.io import load_cloud, read_ply, write_ply
+    from goicp_tpu_torch.io.loader import subsample_cloud
+    from goicp_tpu_torch.nn import fused
+
+    base = os.path.join(OUT_DIR, "cli")
+    os.makedirs(base, exist_ok=True)
+    tgt_full, src_full, R_gt, t_gt = bunny_full()
+    n = tgt_full.shape[0]
+    tgt_ply = os.path.join(HERE, "data_generated", "rotated_bunny.ply")
+    spies = [Spy(cli, "run_scenario"), Spy(solver, "estimate_normals"),
+             Spy(cli, "build_distance_grid")]
+    out = {}
+    try:
+        # -- 7a: mode 4, plane metric, 1,518 / 1,797 points --------------
+        s = N_TGT / n
+        n_src = int(np.ceil(N_SRC / s))                  # floor(n_src·s) = 1,518
+        sub = np.sort(np.random.default_rng(1).choice(n, n_src, replace=False))
+        src_ply = os.path.join(base, "bunny_source_34006.ply")
+        write_ply(src_ply, src_full[sub].astype(np.float32))
+        seed = next(k for k in range(1000)
+                    if subsample_cloud(tgt_full, s, k).shape[0] == N_TGT
+                    and subsample_cloud(src_full[sub], s, k).shape[0] == N_SRC)
+        scale = 1.0 / max(np.abs(src_full).max(), np.abs(tgt_full).max())
+        S = load_cloud(src_ply, s, scale, seed)
+        T = load_cloud(tgt_ply, s, scale, seed)
+        mse_true = mse_at_truth(dev, S, T, R_gt.astype(np.float32), (t_gt * scale).astype(np.float32))
+        toml = scenario_toml(os.path.join(base, "mode4_plane.toml"), tgt_ply, src_ply, 4, s,
+                             scale, MSE_FACTOR * mse_true, icp_metric="plane",
+                             max_wall_s=CLI_WALL_S, seed=seed)
+        o, info = run_cli(chk, "7a cli mode 4 plane", toml, os.path.join(base, "mode4_plane"),
+                          spies)
+        rot, terr, _ = pose_error(o["R"], o["t"], R_gt, t_gt * scale, S)
+        extent = float(np.linalg.norm(T.max(0) - T.min(0)))
+        normals = spies[1].calls
+        viz = read_ply(o["viz_ply"])
+        odir = os.path.dirname(o["output_toml"])
+        m = o["metrics"]
+        with open(os.path.join(odir, "trajectory.csv")) as f:
+            rounds = int(f.read().splitlines()[-1].split(",")[0])
+        info.update(n_src=o["n_src"], n_tgt=o["n_tgt"], seed=seed, mse_true=mse_true,
+                    mse_threshold=MSE_FACTOR * mse_true, converged=bool(o["converged"]),
+                    mse=o["mse"], rounds=rounds, nodes=o["rot_nodes"], wall_s=o["wall_s"],
+                    nodes_per_s=o["rot_nodes"] / max(m.get("time_s/bnb", 0.0), 1e-9),
+                    icp_iters=o["icp_iters"],
+                    rot_err_deg=rot, t_err=terr, t_err_over_extent=terr / extent,
+                    normals_s=[c[0] for c in normals],
+                    normals_device=[str(c[2].device) for c in normals],
+                    timers={k: v for k, v in m.items() if k.startswith("time_s/")})
+        print("7a cli mode 4 plane: " + json.dumps(info), flush=True)
+        for k in ("nearest_neighbor_mxu", "bounds_nodes", "min_d2_groups"):
+            chk.expect(info["launches"][k] > 0, f"7a launched {k} {info['launches'][k]} times")
+        chk.expect(o["n_src"] == N_SRC and o["n_tgt"] == N_TGT,
+                   f"7a loaded {o['n_src']} / {o['n_tgt']} points (seed {seed})")
+        chk.expect(len(normals) == 1 and normals[0][2].is_cuda and normals[0][2].shape == (N_TGT, 3),
+                   f"7a estimated the target normals on the card in {normals[0][0] * 1e3:.2f} ms"
+                   if normals else "7a estimated the target normals")
+        chk.expect(rot < 0.5 and terr < 0.01 * extent,
+                   f"7a pose: rotation error {rot:.4f} deg (< 0.5), translation error "
+                   f"{100 * terr / extent:.3f}% of the extent (< 1%)")
+        chk.expect(viz.shape[0] == o["n_src"] + o["n_tgt"],
+                   f"7a viz.ply reads back {viz.shape[0]} points")
+        chk.expect(all(os.path.exists(os.path.join(odir, f))
+                       for f in ("trajectory.csv", "metrics.json")),
+                   "7a trajectory.csv and metrics.json written")
+        out["mode 4 plane"] = info
+
+        # -- 7b: modes 1 and 2 on the whole cloud -------------------------
+        runs, Rs, ts, ext_full, src_b32 = runs_7b(base)
+        # point-to-point ICP stalls short of this pose (mode 1 at 0.33°,
+        # mode 2 a few cells off, whose correspondences are the cells'
+        # points, not the nearest ones); the plane metric reaches it, so the
+        # plane runs are held to the limits and the point runs to the port's
+        # CPU path on the same TOMLs (CPU_WITNESS)
+        for mode, metric, toml, name in runs:
+            o, info = run_cli(chk, f"7b cli {name}", toml,
+                              os.path.join(base, f"mode{mode}_{metric}"), spies)
+            rot, terr, rms = pose_error(o["R"], o["t"], Rs, ts, src_b32)
+            info.update(n_src=o["n_src"], n_tgt=o["n_tgt"], icp_iters=o["icp_iters"],
+                        wall_s=o["wall_s"], mse=o["mse"], converged=bool(o["converged"]),
+                        rot_err_deg=rot, t_err=terr, rms=rms, extent=ext_full)
+            key = f"{n}x{n}"
+            if metric == "point":
+                wit = CPU_WITNESS[name]
+                between = pose_error(o["R"], o["t"], np.asarray(wit["R"], np.float64),
+                                     np.asarray(wit["t"], np.float64), src_b32)[2]
+                info.update(witness_iters=wit["icp_iters"], rms_from_witness=between)
+                chk.expect(abs(int(o["icp_iters"]) - wit["icp_iters"]) <= WITNESS_ITERS
+                           and between < WITNESS_RMS,
+                           f"7b {name} matches the CPU path: {o['icp_iters']} iterations "
+                           f"(CPU {wit['icp_iters']}, within {WITNESS_ITERS}), pose "
+                           f"{between:.3g} RMS from the CPU's (< {WITNESS_RMS:g}); RMS "
+                           f"{rms:.4g} from the true pose (CPU {wit['rms']:.4g})")
+            if mode == 1:
+                chk.expect(info["k1_launches_by_shape"].get(key, 0) > 0,
+                           f"7b {name} launched K1 at {n} x {n} "
+                           f"{info['k1_launches_by_shape'].get(key, 0)} times")
+                if metric == "plane":
+                    chk.expect(rms < 1e-3 * ext_full,
+                               f"7b {name} pose: RMS displacement {rms:.3g} (< 1e-3 of the "
+                               f"extent {ext_full:.4g}), rotation error {rot:.4g} deg")
+            else:
+                build = spies[2].calls
+                g = build[-1][2]
+                info.update(edt_build_s=build[-1][0], grid_n=g.n, cell=g.cell)
+                chk.expect(info["launches"]["nearest_neighbor_mxu"] == 0,
+                           f"7b {name} launched no K1 ({info['launches']['nearest_neighbor_mxu']})")
+                chk.expect(g.n == 256 and g.values.is_cuda,
+                           f"7b {name} built a {g.n}^3 EDT grid on the card in "
+                           f"{build[-1][0]:.3f} s")
+                if metric == "plane":
+                    chk.expect(rms < g.cell,
+                               f"7b {name} pose: RMS displacement {rms:.3g} (< one cell "
+                               f"{g.cell:.3g}), rotation error {rot:.4g} deg")
+            print(f"7b cli {name}: " + json.dumps(info), flush=True)
+            out[name] = info
+
+        # -- 7c: above mxu_max through register ---------------------------
+        tgt_c = (tgt_full * scale_h).astype(np.float32)
+        params, mse_c = solve_params(dev, src_h, tgt_c, R_h, t_h, 0.0, bound_backend="auto",
+                                     max_wall_s=CLI_WALL_S)
+        seen = {}
+        orig_run = se3.GoIcpSolverSE3.run
+
+        def run(self, *a, **k):
+            seen.update(backend=self._backend, icp_backend=self._icp_backend,
+                        grid_n=None if self.grid is None else self.grid.n,
+                        grid_s=self.metrics.timers.get("grid_build"))
+            return orig_run(self, *a, **k)
+
+        se3.GoIcpSolverSE3.run = run
+        try:
+            torch.cuda.synchronize()
+            fused.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = register(src_h, tgt_c, params, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            se3.GoIcpSolverSE3.run = orig_run
+        launches = dict(fused.launches)
+        rot, terr, _ = pose_error(res.transform.R, res.transform.t, R_h, t_h, src_h)
+        extent = float(np.linalg.norm(tgt_c.max(0) - tgt_c.min(0)))
+        timers = dict(res.metrics.timers)
+        info = dict(seen, n_src=src_h.shape[0], n_tgt=tgt_c.shape[0], mse_true=mse_c,
+                    mse_threshold=params.mse_threshold, rounds=res.rounds,
+                    nodes=res.rot_nodes, nodes_per_s=res.rot_nodes / max(timers.get("bnb", 0), 1e-9),
+                    converged=bool(res.converged), gap=res.gap, wall_s=wall,
+                    rot_err_deg=rot, t_err=terr, t_err_over_extent=terr / extent,
+                    icp_iters=res.icp_iters, launches=launches, timers=timers,
+                    k1_launches_by_shape={f"{q}x{t}": c for (q, t), c
+                                          in sorted(fused.nn_launch_shapes.items())})
+        print("7c grid solve: " + json.dumps(info), flush=True)
+        chk.expect(seen.get("backend") == "grid" and seen.get("icp_backend") == "grid",
+                   f"7c picked {seen.get('backend')!r} bounds and {seen.get('icp_backend')!r} ICP "
+                   f"for {tgt_c.shape[0]} targets (grid {seen.get('grid_n')}^3 built in "
+                   f"{seen.get('grid_s') or 0:.3f} s)")
+        k26 = {k: launches[k] for k in ("bounds_nodes", "min_d2_groups", "min_d2_nodes",
+                                        "bounds_nodes_trimmed", "bounds_groups_trimmed")}
+        chk.expect(not any(k26.values()), f"7c launched none of K2-K6 {k26}")
+        chk.expect(res.rot_nodes > 0, f"7c evaluated {res.rot_nodes} nodes "
+                                      f"({info['nodes_per_s']:.0f} nodes/s)")
+        chk.expect(rot < 0.5 and terr < 0.01 * extent,
+                   f"7c pose: rotation error {rot:.4f} deg (< 0.5), translation error "
+                   f"{100 * terr / extent:.3f}% of the extent (< 1%)")
+        out["grid solve"] = info
+    finally:
+        for sp in spies:
+            sp.restore()
+
+    out["plain stages"] = plain_stages(dev, tgt_full, src_h, out, clock_hz)
+
+    # -- 7d: card against CPU on the grid, exact and plane paths -----------
+    rng = np.random.default_rng(3)
+    s = psrc[np.sort(rng.choice(psrc.shape[0], 300, replace=False))]
+    t = ptgt[np.sort(rng.choice(ptgt.shape[0], 300, replace=False))]
+    kw = dict(se3_pop=64, init_multistart=8, refine_top_k=2, max_rounds=30, max_wall_s=1e9)
+    out["card vs cpu"] = {}
+    for label, extra in (("grid", dict(bound_backend="grid", grid_resolution=64)),
+                         ("exact", dict(bound_backend="exact")),
+                         ("plane", dict(icp_metric="plane"))):
+        params, _ = solve_params(dev, s, t, pR, pt, 0.0, **kw, **extra)
+        out["card vs cpu"][label] = card_vs_cpu(chk, dev, f"7d {label}", s, t, params)
+    return out
+
+
 # (key, launch counter, the phase whose solve is the kernel's main path);
 # K1 has a row per shape (k1_shapes) and counts that shape's launches
 KERNELS = (
     ("K1 refine", "nearest_neighbor_mxu", "solve"),
     ("K1 coarse", "nearest_neighbor_mxu", "solve"),
     ("K1 multistart", "nearest_neighbor_mxu", "solve"),
+    ("K1 cli", "nearest_neighbor_mxu", "cli mode 1"),
     ("K2", "bounds_nodes", "solve"),
     ("K3", "min_d2_groups", "solve"),
     ("K4", "min_d2_nodes", "trimmed solve"),
@@ -900,8 +1397,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(kernels.sources())} sources", flush=True)
+    if "--witness" in sys.argv[1:]:
+        cpu_witness(chk, torch.device("cuda"))
+        print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 1 if chk.failed else 0
 
-    src, tgt, R_gt, t_gt, n_full = load_bunny()
+    src, tgt, R_gt, t_gt, scale = load_bunny()
     psrc, ptgt, pR, pt = load_bunny_partial()
     se3_pop = max(64, min(4096, int(32e6 / (8 * src.shape[0]))))   # bnb/se3.py auto
     h_trim = int(round(N_SRC * (1.0 - TRIM)))
@@ -921,6 +1422,13 @@ def main() -> int:
     }
     small = small_agreement(chk, dev)
     small_trim = small_trimmed_agreement(chk, dev, psrc, ptgt, pR, pt)
+    t7 = time.perf_counter()
+    cli_out = cli_phase(chk, dev, src, R_gt, t_gt, scale, psrc, ptgt, pR, pt,
+                        clock_mhz * 1e6)
+    cli_out["phase_s"] = time.perf_counter() - t7
+    print(f"phase 7: {cli_out['phase_s']:.1f} s", flush=True)
+    for k in ("mode 4 plane", "mode 1", "mode 1 plane", "mode 2", "mode 2 plane", "grid solve"):
+        phases[f"cli {k}" if k != "grid solve" else k] = cli_out[k]
     prof = None
     if "--profile" in sys.argv[1:]:
         prof = {"solve": profile_solve(chk, dev, "solve", src, tgt, R_gt, t_gt),
@@ -956,7 +1464,7 @@ def main() -> int:
         json.dump(dict(card=card, kind=kind, clock_mhz=clock_mhz, kernels=kernels_line,
                        solve=phases["solve"], trimmed_solve=phases["trimmed solve"],
                        trimmed_screen_solve=phases["trimmed screen solve"],
-                       small=small, small_trimmed=small_trim, failed=chk.failed,
+                       small=small, small_trimmed=small_trim, cli=cli_out, failed=chk.failed,
                        total_s=time.perf_counter() - t_start), f, indent=1)
     if prof is not None:
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:

@@ -1,10 +1,13 @@
 """goicp_tpu_torch — the PyTorch/CUDA port of goicp_tpu for one NVIDIA H100.
 
 The port sits beside the JAX package, which stays the reference, and
-imports nothing from it.  It carries the certified flat SE(3) Go-ICP solve
-of one pair (:func:`register`, :func:`make_solver`), untrimmed and trimmed,
-on Hopper kernels written in CUDA C++ (``csrc/``, K1-K7, one for each
-Pallas kernel of the JAX package; see :mod:`goicp_tpu_torch.nn.fused`).
+imports nothing from it.  It carries the reference-TOML CLI and its five
+run modes (``python -m goicp_tpu_torch scenario.toml``,
+:mod:`goicp_tpu_torch.cli`) and the certified flat SE(3) Go-ICP solve of
+one pair (:func:`register`, :func:`make_solver`), untrimmed and trimmed,
+point or plane metric, on the fused bounds or a distance grid, on Hopper
+kernels written in CUDA C++ (``csrc/``, K1-K7, one for each Pallas kernel
+of the JAX package; see :mod:`goicp_tpu_torch.nn.fused`).
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs each kernel's plain PyTorch version.
 
@@ -24,6 +27,8 @@ from goicp_tpu_torch.bnb import (  # noqa: E402
     make_solver,
     register,
 )
+from goicp_tpu_torch.core.config import Config, Mode  # noqa: E402
 from goicp_tpu_torch.core.types import RigidTransform  # noqa: E402
 
-__all__ = ["BnbParams", "GoIcpResult", "RigidTransform", "make_solver", "register"]
+__all__ = ["BnbParams", "Config", "GoIcpResult", "Mode", "RigidTransform", "make_solver",
+           "register"]

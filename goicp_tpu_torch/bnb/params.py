@@ -51,8 +51,10 @@ class BnbParams:
     bound_backend: str = "auto"      # "mxu" (K4/K3 + epilogue; K2 on
                                      # untrimmed R-rounds while screen) |
                                      # "screen" (K2, or K5/K6 when trimmed) |
-                                     # "exact"/"grid" (not ported yet) |
-                                     # "auto": mxu up to mxu_max targets
+                                     # "exact" (expansion over target tiles) |
+                                     # "grid" (distance-grid lookups) |
+                                     # "auto": mxu up to mxu_max targets,
+                                     # grid above
     bound_points: int = 8192         # BnB solves on at most this many source
                                      # points (deterministic subset); the
                                      # final pose is ICP-polished on the full
@@ -65,9 +67,8 @@ class BnbParams:
                                      # node_count×N×Nt dominates (the same
                                      # economics as jly's DT, SURVEY §2 C11)
     mxu_max: int = 32768             # auto-backend cutoff for the fused
-                                     # kernels (the JAX package's value; the
-                                     # port's own cutoff waits for the grid
-                                     # backend and an H100 measurement)
+                                     # kernels (the JAX package's value, not
+                                     # yet derived from H100 measurements)
     icp_exact_max: int = 16384       # use exact-NN ICP (true SSE) below this
     init_multistart: int = 64        # batched multi-start ICP seeds (ref: 1,
                                      # identity only, fgoicp.cpp:11) — a
@@ -89,8 +90,8 @@ class BnbParams:
     icp_max_iter: int = 100
     icp_rel_tol: float = 1e-4
     icp_metric: str = "point"        # "point" (ref parity, icp3d.cu:140-172)
-                                     # | "plane" (point-to-plane; not ported
-                                     # yet)
+                                     # | "plane" (point-to-plane, on PCA
+                                     # target normals)
     normals_k: int = 16              # kNN size for PCA target normals
     icp_cap: int = 64                # max candidates refined per batched ICP
     conservative: bool = False       # True: deflate lbs by the grid
@@ -198,12 +199,8 @@ class GoIcpResult:
 
 
 def auto_backend(params: BnbParams, n_tgt: int) -> str:
-    """The "auto" bound backend on this port: the fused kernels ("mxu") up to
-    ``mxu_max`` targets.  The exact and grid backends the JAX package picks
-    beyond that (and on its CPU below ``exact_max``) are not ported yet."""
-    if n_tgt <= params.mxu_max:
-        return "mxu"
-    raise NotImplementedError(
-        f"{n_tgt} targets exceed mxu_max={params.mxu_max}: the grid backend is "
-        "not ported yet (ROADMAP queue 1, 'The grid backend')"
-    )
+    """The "auto" bound backend on this port: the fused kernels ("mxu") up
+    to ``mxu_max`` targets, the grid backend above (``params.py:228``).  The
+    JAX package's rule is the same on a TPU; on its CPU it picks "exact"
+    up to ``exact_max``, a rate this port's CUDA kernels replace."""
+    return "mxu" if n_tgt <= params.mxu_max else "grid"

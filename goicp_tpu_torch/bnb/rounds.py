@@ -85,7 +85,15 @@ class Se3RoundDriver:
         self._buckets = buckets
 
         self._h = solver.ev.h if p.trim_fraction > 0 else 0
-        self._slack = float(solver._exact_slack)
+        self._slack = float(
+            solver._exact_slack
+            if solver._backend in ("exact", "mxu", "screen")
+            else solver.ev.slack
+        )
+        # what the bounds read beside the backend: the grid for "grid", the
+        # lookup and the point tiling for "exact"/"grid"
+        self._bound_kw = dict(backend=solver._backend, grid=solver.grid,
+                              lookup=p.lookup, tile=p.point_tile, tgt_tile=256)
 
     # -- frontier management -------------------------------------------------
 
@@ -155,7 +163,7 @@ class Se3RoundDriver:
     def dispatch_T(self, round_idx: int = 0) -> dict:
         """Pop translation-split nodes → 8 octant t-children per parent, all
         sharing the parent rotation → one grouped round (kernel K3, or K6 on
-        trimmed "screen" solves)."""
+        trimmed "screen" solves; flattened nodes on "exact"/"grid")."""
         s, m = self.s, self.m
         pay, pop_lb, pop_ub = self.fT.pop_best(self.pop_cap)
         B = pay.shape[0]
@@ -192,7 +200,7 @@ class Se3RoundDriver:
             self._dev(np.concatenate([ts8, np.zeros((padg, 8), np.float32)])),
             self._dev(mask, torch.bool),
             h=self._h,
-            backend=s._backend,
+            **self._bound_kw,
         )
         out = {"bounds": (ub, lb, R_flat, t_flat), "gate": self.refine_gate()}
         return {
@@ -210,7 +218,7 @@ class Se3RoundDriver:
     def dispatch_singleton(self, frontier, round_idx: int = 0) -> dict:
         """Pop from ``frontier`` (fR: rotation splits and leaves) → octant
         children as singleton jobs → one round (kernel K2 or K5 on the
-        "screen" backend, K4 on "mxu")."""
+        "screen" backend, K4 on "mxu", plain PyTorch on "exact"/"grid")."""
         m = self.m
         pay, pop_lb, pop_ub = frontier.pop_best(self.pop_cap)
         B = pay.shape[0]
@@ -281,7 +289,7 @@ class Se3RoundDriver:
             self._dev(np.concatenate([np.ones(C, bool), np.zeros(padn, bool)]),
                       torch.bool),
             h=self._h,
-            backend=s._backend,
+            **self._bound_kw,
         )
         out = {"bounds": (ub, lb, R_dev, t_dev), "gate": self.refine_gate()}
         return out, R_c, cap
@@ -294,7 +302,8 @@ class Se3RoundDriver:
         ub, lb, R, t = out["bounds"]
         res = _refine_tail(
             ub, lb, R, t, s._src_dev, s._tgt_dev, s.p.refine_top_k,
-            s._icp_params_round, out["gate"],
+            s._icp_params_round, out["gate"], grid=s.grid,
+            tgt_normals=s._nrm_dev, icp_backend=s._icp_backend,
         )
         return [x.cpu().numpy() for x in res]
 

@@ -1,8 +1,9 @@
 """SE(3) bound evaluation and the fused round (port of the JAX package's
-``bnb/se3_eval.py`` on the fused kernels).
+``bnb/se3_eval.py``).
 
 A round evaluates the bounds of a flat batch of nodes and then ICP-refines
-the ``refine_k`` best-ub nodes (``_refine_tail``).  The bound backends:
+the ``refine_k`` best-ub nodes (``_refine_tail``), on exact or grid
+correspondences.  The bound backends:
 
 - R-rounds (singleton nodes, :func:`se3_round`): "screen" runs the screened
   kernel K2, or K5 when trimmed; "mxu" runs K4's per-point distances and
@@ -10,6 +11,10 @@ the ``refine_k`` best-ub nodes (``_refine_tail``).  The bound backends:
 - T-rounds (8 translation siblings per rotation, :func:`se3_round_grouped`):
   the grouped kernel K3 and the epilogue, on both backends; trimmed
   "screen" T-rounds run K6 instead.
+- "exact" and "grid" (:func:`evaluate_se3_nodes`, both round kinds, the
+  grouped one flattened to nodes): plain PyTorch over point tiles, with
+  exact distances by the ``|p|² − 2p·t + |t|²`` expansion over target tiles,
+  or distance-grid lookups with their escape term.
 
 Everything stays queued on the device; the round driver (``bnb.rounds``)
 runs the refine tail when it absorbs the round.
@@ -22,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from goicp_tpu_torch.bnb.bounds import lookup_sq
 from goicp_tpu_torch.core.types import RigidTransform
 from goicp_tpu_torch.geo.rotation import (
     axis_angle_cube_max_angle,
@@ -152,6 +158,95 @@ def evaluate_se3_groups_screened(src, norms, tgt, slack, thresh, R, max_angle,
     return _masked(mask, ub, lb)
 
 
+def _exact_min_d2(pts, tgt_tiles, tgt_norm_tiles):
+    """Exact min squared distance of ``pts [..., 3]`` over target tiles
+    ``[Tt, tile_t, 3]`` (padded at 1e15) by the ``|p|² − 2p·t + |t|²``
+    expansion, one matmul per tile (``device_inner.py:77``); the
+    per-step intermediate is ``[X, tile_t]``."""
+    shape = pts.shape[:-1]
+    flat = pts.reshape(-1, 3)
+    pn = fused._sq3(flat)
+    best = torch.full_like(pn, _INF)
+    for t_tile, tn in zip(tgt_tiles, tgt_norm_tiles):
+        d2 = tn[None, :] - 2.0 * (flat @ t_tile.T)
+        best = torch.minimum(best, d2.amin(dim=-1))
+    return torch.clamp(best + pn, min=0.0).reshape(shape)
+
+
+def evaluate_se3_nodes(src, norms, grid, tgt, slack, R, max_angle, t_c, t_span,
+                       mask, *, h: int = 0, lookup: str = "trilinear",
+                       backend: str = "exact", tile: int = 128,
+                       tgt_tile: int = 256):
+    """(ub, lb) of a flat batch of SE(3) nodes on the "exact" or "grid"
+    backend (``se3_eval.py:144``).  Points go through ``tile``-point tiles,
+    so no ``[M, N, 3]`` tensor is made whole; the ``[M, Np]`` terms are
+    kept for the sums.  The sums add in the JAX package's jitted CPU order
+    (:func:`~goicp_tpu_torch.nn.fused.ordered_row_sum` per tile, the tiles
+    in sequence; trimmed sums by the bisection with ``ordered=True``), so
+    node counts do not move with the summation order.
+    ``tgt`` is read by "exact" only; ``grid`` by "grid" only."""
+    M, N = R.shape[0], src.shape[0]
+    dev = src.device
+    drop = _drop(h, N)
+    if backend == "exact":
+        nt = tgt.shape[0]
+        padt = (-nt) % tgt_tile
+        if padt:
+            tgt = torch.cat([tgt, torch.full((padt, 3), 1e15, dtype=tgt.dtype, device=dev)])
+        tgt_tiles = tgt.reshape(-1, tgt_tile, 3)
+        tgt_norm_tiles = (tgt_tiles * tgt_tiles).sum(-1)
+
+    gamma_r = rotation_displacement(max_angle, norms)          # [M,N]
+    gamma_t = (_SQRT3 * t_span)[:, None]                        # [M,1]
+    Rt = R.transpose(-1, -2)
+    stored_ub, stored_lb = [], []
+    for p0 in range(0, N, tile):
+        s_tile = src[p0:p0 + tile]
+        g_tile = gamma_r[:, p0:p0 + tile]
+        n_real = s_tile.shape[0]
+        if n_real < tile:                                       # zero-padded last tile
+            s_tile = torch.nn.functional.pad(s_tile, (0, 0, 0, tile - n_real))
+            g_tile = torch.nn.functional.pad(g_tile, (0, tile - n_real))
+        m_tile = (torch.arange(tile, device=dev) < n_real).to(torch.float32)
+        pts = s_tile[None] @ Rt + t_c[:, None, :]                # [M,tile,3]
+        if backend == "exact":
+            d = torch.sqrt(_exact_min_d2(pts, tgt_tiles, tgt_norm_tiles))
+            # slack: the f32-cancellation allowance of the expansion
+            d_lo = torch.clamp(d - slack, min=0.0)
+            d_hi = d + slack
+        else:
+            val, esc = lookup_sq(grid, pts, lookup)
+            d = torch.sqrt(torch.clamp(val, min=0.0))
+            d_lo = torch.clamp(d - esc - slack, min=0.0)
+            d_hi = d + esc + slack
+        ub_c = (d_hi * d_hi) * m_tile
+        c = torch.clamp(d_lo - g_tile - gamma_t, min=0.0)
+        lb_c = (c * c) * m_tile
+        if drop:
+            # padding must never occupy inlier slots of the trimmed sums
+            inf_pad = (1.0 - m_tile) * 1e30
+            ub_c = ub_c + inf_pad
+            lb_c = lb_c + inf_pad
+        stored_ub.append(ub_c)
+        stored_lb.append(lb_c)
+    if drop:
+        s_ub = _trimmed_sum_bisect(torch.cat(stored_ub, dim=1), h, upper=True, ordered=True)
+        s_lb = _trimmed_sum_bisect(torch.cat(stored_lb, dim=1), h, upper=False, ordered=True)
+    else:
+        s_ub, s_lb = (_tile_sums(torch.stack(s, dim=1)) for s in (stored_ub, stored_lb))
+    return _masked(mask, s_ub, s_lb)
+
+
+def _tile_sums(terms):
+    """``[M, T, tile] → [M]``: each tile's sum, then the tiles in sequence
+    (the JAX package's scan carry)."""
+    per_tile = fused.ordered_row_sum(terms)
+    acc = per_tile[:, 0]
+    for k in range(1, per_tile.shape[1]):
+        acc = acc + per_tile[:, k]
+    return acc
+
+
 def _angles(max_angle):
     """``max_angle`` is the per-node angles or a ``(centers, spans)`` tuple,
     whose center-aware bound is computed here, on the device."""
@@ -160,89 +255,106 @@ def _angles(max_angle):
     return max_angle
 
 
-def _backend_ported(backend: str, kind: str):
-    if backend not in ("mxu", "screen"):
-        raise NotImplementedError(
-            f"{kind} on backend {backend!r} are not ported yet (ROADMAP queue 1, "
-            "'The grid backend')"
-        )
-
-
 def se3_round_bounds(src, norms, tgt, slack, thresh, R, max_angle, t_c,
-                     t_span, mask, *, h: int, backend: str):
+                     t_span, mask, *, h: int, backend: str, grid=None,
+                     lookup: str = "nearest", tile: int = 128, tgt_tile: int = 256):
     """The bound half of :func:`se3_round` (singleton nodes)."""
-    _backend_ported(backend, "R-rounds")
     ang = _angles(max_angle)
     if backend == "screen":
         return evaluate_se3_nodes_screened(
             src, norms, tgt, slack, thresh, R, ang, t_c, t_span, mask, h=h,
         )
-    return evaluate_se3_nodes_mxu(
-        src, norms, tgt, slack, R, ang, t_c, t_span, mask, h=h,
+    if backend == "mxu":
+        return evaluate_se3_nodes_mxu(
+            src, norms, tgt, slack, R, ang, t_c, t_span, mask, h=h,
+        )
+    return evaluate_se3_nodes(
+        src, norms, grid, tgt, slack, R, ang, t_c, t_span, mask, h=h,
+        lookup=lookup, backend=backend, tile=tile, tgt_tile=tgt_tile,
     )
 
 
 def se3_round_grouped_bounds(src, norms, tgt, slack, thresh, R, max_angle, t8,
-                             t_span8, mask, *, h: int, backend: str):
+                             t_span8, mask, *, h: int, backend: str, grid=None,
+                             lookup: str = "nearest", tile: int = 128,
+                             tgt_tile: int = 256):
     """The bound half of :func:`se3_round_grouped`; also returns the
     flattened per-node poses ``(R_flat [8G,3,3], t_flat [8G,3])``.
     Untrimmed T-rounds stay on K3 even when screening, as in the JAX
-    package (``se3_eval.py:436``); ``thresh`` is read only by K6."""
-    _backend_ported(backend, "T-rounds")
+    package (``se3_eval.py:436``); ``thresh`` is read only by K6.  The
+    "exact" and "grid" backends evaluate the flattened nodes."""
     G = R.shape[0]
     ang = _angles(max_angle)
+    R_flat = torch.repeat_interleave(R, 8, dim=0)
+    t_flat = t8.reshape(8 * G, 3)
     if backend == "screen" and _drop(h, src.shape[0]):
         ub, lb = evaluate_se3_groups_screened(
             src, norms, tgt, slack, thresh, R, ang, t8, t_span8, mask, h=h,
         )
-    else:
+    elif backend in ("mxu", "screen"):
         ub, lb = evaluate_se3_groups_mxu(
             src, norms, tgt, slack, R, ang, t8, t_span8, mask, h=h,
         )
-    return ub, lb, torch.repeat_interleave(R, 8, dim=0), t8.reshape(8 * G, 3)
+    else:
+        ub, lb = evaluate_se3_nodes(
+            src, norms, grid, tgt, slack, R_flat, torch.repeat_interleave(ang, 8),
+            t_flat, t_span8.reshape(-1), mask, h=h, lookup=lookup, backend=backend,
+            tile=tile, tgt_tile=tgt_tile,
+        )
+    return ub, lb, R_flat, t_flat
 
 
 def _refine_tail(ub, lb, R, t_c, src, tgt, refine_k, icp_params,
-                 refine_gate=None):
-    """Batched ICP on the ``refine_k`` best-ub nodes (``se3_eval.py:365``).
+                 refine_gate=None, *, grid=None, tgt_normals=None,
+                 icp_backend: str = "exact"):
+    """Batched ICP on the ``refine_k`` best-ub nodes (``se3_eval.py:365``),
+    on exact or grid correspondences; ``tgt_normals`` (or None) serve the
+    plane metric, whose reported sse stays point-to-point.
 
     ``jax.lax.top_k(-ub, k)`` returns ties lowest index first; a stable
     ascending sort gives the same order (``torch.topk`` promises none).
     Candidates at or above ``refine_gate`` start inactive."""
-    from goicp_tpu_torch.icp import exact_correspondence, run_icp
+    from goicp_tpu_torch.icp import exact_correspondence, grid_correspondence, run_icp
 
     top = torch.sort(ub, stable=True).indices[:refine_k]
     R0 = R.index_select(0, top)
     t0 = t_c.index_select(0, top)
     active0 = None if refine_gate is None else ub.index_select(0, top) < refine_gate
-    res = run_icp(
-        src, exact_correspondence(tgt), RigidTransform(R0, t0), icp_params,
-        active0=active0,
+    corr = (
+        exact_correspondence(tgt, normals=tgt_normals)
+        if icp_backend == "exact"
+        else grid_correspondence(grid, tgt, normals=tgt_normals)
     )
+    res = run_icp(src, corr, RigidTransform(R0, t0), icp_params, active0=active0)
     return ub, lb, res.transform.R, res.transform.t, res.sse, res.iters
 
 
 def se3_round(src, norms, tgt, slack, thresh, R, max_angle, t_c, t_span, mask,
               *, h: int, backend: str, refine_k: int, icp_params,
-              refine_gate=None):
+              refine_gate=None, grid=None, tgt_normals=None, lookup: str = "nearest",
+              tile: int = 128, tgt_tile: int = 256, icp_backend: str = "exact"):
     """One BnB round over singleton nodes: bounds, then the gated top-k
     refine (``se3_eval.py:302``).  Returns ``(ub, lb, R_ref, t_ref,
     sse_ref, iters_ref)``."""
     ub, lb = se3_round_bounds(
         src, norms, tgt, slack, thresh, R, max_angle, t_c, t_span, mask, h=h,
-        backend=backend,
+        backend=backend, grid=grid, lookup=lookup, tile=tile, tgt_tile=tgt_tile,
     )
     return _refine_tail(ub, lb, R, t_c, src, tgt, refine_k, icp_params,
-                        refine_gate)
+                        refine_gate, grid=grid, tgt_normals=tgt_normals,
+                        icp_backend=icp_backend)
 
 
 def se3_round_grouped(src, norms, tgt, slack, thresh, R, max_angle, t8,
                       t_span8, mask, *, h: int, backend: str, refine_k: int,
-                      icp_params, refine_gate=None):
+                      icp_params, refine_gate=None, grid=None, tgt_normals=None,
+                      lookup: str = "nearest", tile: int = 128, tgt_tile: int = 256,
+                      icp_backend: str = "exact"):
     """One BnB round over translation-split groups (``se3_eval.py:400``)."""
     ub, lb, R_flat, t_flat = se3_round_grouped_bounds(
         src, norms, tgt, slack, thresh, R, max_angle, t8, t_span8, mask, h=h,
-        backend=backend,
+        backend=backend, grid=grid, lookup=lookup, tile=tile, tgt_tile=tgt_tile,
     )
     return _refine_tail(ub, lb, R_flat, t_flat, src, tgt, refine_k,
-                        icp_params, refine_gate)
+                        icp_params, refine_gate, grid=grid,
+                        tgt_normals=tgt_normals, icp_backend=icp_backend)

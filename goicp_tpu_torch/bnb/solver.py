@@ -3,8 +3,13 @@ of the parts of the JAX package's ``bnb/solver.py`` that the flat SE(3)
 engine uses).
 
 :func:`register` / :func:`make_solver` build a :class:`GoIcpSolverSE3`
-(``bnb/se3.py``).  Options this port does not run yet raise
-``NotImplementedError`` naming the ROADMAP item that adds them.
+(``bnb/se3.py``).  Set-up picks the bound backend (``auto_backend``: the
+fused kernels up to ``mxu_max`` targets, the distance grid above) and the
+ICP backend (exact correspondences up to ``icp_exact_max`` targets, the
+grid's index field above), builds or reuses the distance grid when either
+needs it, and estimates target normals for ``icp_metric="plane"``.  Options
+this port does not run yet raise ``NotImplementedError`` naming the ROADMAP
+item that adds them.
 """
 
 from __future__ import annotations
@@ -24,7 +29,14 @@ from goicp_tpu_torch.core.logging import get_logger
 from goicp_tpu_torch.core.metrics import Metrics
 from goicp_tpu_torch.core.progress import ProgressBus
 from goicp_tpu_torch.core.types import RigidTransform
-from goicp_tpu_torch.icp import IcpParams, exact_correspondence, run_icp
+from goicp_tpu_torch.geo.normals import estimate_normals
+from goicp_tpu_torch.icp import (
+    IcpParams,
+    exact_correspondence,
+    grid_correspondence,
+    run_icp,
+)
+from goicp_tpu_torch.nn.grid import build_distance_grid
 
 _SQRT3 = math.sqrt(3.0)
 
@@ -55,10 +67,6 @@ def _check_params(params: BnbParams):
         )
     if params.engine == "nested":
         _not_ported("engine='nested'", "The nested engine")
-    if params.icp_metric == "plane":
-        _not_ported("icp_metric='plane'", "geo/normals.py and the plane metric")
-    if params.bound_backend in ("exact", "grid"):
-        _not_ported(f"bound_backend={params.bound_backend!r}", "The grid backend")
     if max(params.mesh_cubes, params.mesh_points) > 1:
         _not_ported("mesh_cubes/mesh_points > 1", "Distribution")
     if params.checkpoint_path:
@@ -67,8 +75,9 @@ def _check_params(params: BnbParams):
 
 class GoIcpSolver:
     """Globally-optimal registration of ``src`` onto ``tgt`` on one device:
-    the clouds on the device, the bound constants and the batched ICP
-    refiner (``bnb/solver.py:96``).  ``device=None`` means CUDA."""
+    the clouds on the device, the distance grid and target normals where
+    needed, the bound constants and the batched ICP refiner
+    (``bnb/solver.py:96``).  ``device=None`` means CUDA."""
 
     def __init__(
         self,
@@ -104,22 +113,23 @@ class GoIcpSolver:
             self._backend = auto_backend(params, n_tgt)
         else:
             self._backend = params.bound_backend
-            if n_tgt > params.mxu_max:
-                _not_ported(f"{n_tgt} targets (> mxu_max)", "The grid backend")
         # the screened kernel K2 carries untrimmed R-rounds; trimmed solves
         # and screen=False stay on "mxu" (K4 + epilogue), as the JAX package
         # chooses (bnb/solver.py:188-193); bound_backend="screen" opts a
         # trimmed solve in to K5/K6
         if self._backend == "mxu" and params.screen and params.trim_fraction == 0.0:
             self._backend = "screen"
-        if n_tgt > params.icp_exact_max:
-            _not_ported(f"ICP against {n_tgt} targets (> icp_exact_max)", "The grid backend")
-        self._icp_backend = "exact"
-        self.grid = None
+        # exact NN ICP while it stays cheap (true SSE, tighter incumbents),
+        # the grid's index field for large targets
+        self._icp_backend = "exact" if n_tgt <= params.icp_exact_max else "grid"
 
         self._src_dev = torch.as_tensor(self.src, device=self.device)
         self._tgt_dev = torch.as_tensor(self.tgt, device=self.device)
-        self.ev = BoundsEvaluator(self._src_dev, trim_fraction=params.trim_fraction)
+        self.grid = self._grid()
+        self.ev = BoundsEvaluator(
+            self._src_dev, self.grid, trim_fraction=params.trim_fraction,
+            lookup=params.lookup, conservative=params.conservative,
+        )
         self.rotparam = _PARAMS[params.rotation_param]
         # SSEThresh = MSEThresh * inlierNum (jly_goicp.cpp:199-208)
         self.sse_thresh = params.mse_threshold * self.ev.h
@@ -135,6 +145,12 @@ class GoIcpSolver:
             self._icp_params,
             max_iter=min(params.icp_max_iter, params.refine_max_iter),
         )
+        # plane-metric refinement descends the point-to-plane objective, but
+        # incumbents are always the point-SSE best pose, so pruning and the
+        # ε-certificate do not depend on the metric (solver.py:266-279)
+        self._nrm_dev = None
+        if params.icp_metric == "plane":
+            self._nrm_dev = estimate_normals(self._tgt_dev, k=params.normals_k)
         # certified-mode numerical slack deducted from lower bounds
         # (bnb/solver.py:285-291); 0 in reference-parity mode
         scale = float(
@@ -145,14 +161,38 @@ class GoIcpSolver:
             math.sqrt(8.0 * 1.2e-7) * scale if params.conservative else 0.0
         )
 
+    def _grid(self):
+        """The distance grid the backends need (``solver.py:201-231``): the
+        bounds read it on "grid", the ICP reads its index field on the
+        "grid" ICP backend.  It is built at ``grid_resolution`` (phase
+        ``grid_build``); with neither backend on the grid there is none."""
+        p = self.p
+        need_bounds = self._backend == "grid"
+        need_index = self._icp_backend == "grid"
+        if not (need_bounds or need_index):
+            return None
+        with self.metrics.phase("grid_build"):
+            g = build_distance_grid(
+                self._tgt_dev, n=p.grid_resolution, expand=p.grid_expand,
+                method=p.grid_method, with_index=need_index,
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return g
+
     # -- batched ICP ---------------------------------------------------------
 
-    def _icp(self, src_dev, tgt_dev, R, t, params: IcpParams):
-        """Exact-correspondence ICP of a pose batch (``_exact_icp``)."""
-        return run_icp(
-            src_dev, exact_correspondence(tgt_dev),
-            RigidTransform(self._to(R), self._to(t)), params,
-        )
+    def _icp(self, src_dev, R, t, params: IcpParams, normals=None, tgt_dev=None,
+             backend: Optional[str] = None):
+        """ICP of a pose batch on the solver's ICP backend (``_exact_icp`` /
+        ``_grid_icp``), or on ``backend``; ``tgt_dev`` replaces the target
+        cloud of an exact correspondence (the coarse multistart's subset)."""
+        tgt = self._tgt_dev if tgt_dev is None else tgt_dev
+        if (backend or self._icp_backend) == "exact":
+            corr = exact_correspondence(tgt, normals=normals)
+        else:
+            corr = grid_correspondence(self.grid, tgt, normals=normals)
+        return run_icp(src_dev, corr, RigidTransform(self._to(R), self._to(t)), params)
 
     def _to(self, x):
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
@@ -167,7 +207,7 @@ class GoIcpSolver:
             pad = cap - (e - s)
             Rb = np.concatenate([R[s:e], np.tile(np.eye(3, dtype=np.float32), (pad, 1, 1))])
             tb = np.concatenate([t[s:e], np.zeros((pad, 3), np.float32)])
-            res = self._icp(self._src_dev, self._tgt_dev, Rb, tb, self._icp_params)
+            res = self._icp(self._src_dev, Rb, tb, self._icp_params, normals=self._nrm_dev)
             outs.append([
                 x.cpu().numpy()[: e - s]
                 for x in (res.transform.R, res.transform.t, res.sse, res.iters)
@@ -179,8 +219,7 @@ class GoIcpSolver:
     def _score(self, R, t):
         """Solve-objective SSE at exact poses ``[B]`` (``solver.py:339``)."""
         params = IcpParams(max_iter=0, rel_tol=0.0, trim_fraction=self.p.trim_fraction)
-        res = self._icp(self._src_dev, self._tgt_dev, R, t, params)
-        return res.sse.cpu().numpy()
+        return self._icp(self._src_dev, R, t, params).sse.cpu().numpy()
 
     def _full_polish(self, best_R, best_t, best_sse):
         """Full-resolution ICP polish when the BnB solved on a
@@ -190,8 +229,8 @@ class GoIcpSolver:
             return best_R, best_t, best_sse
         with self.metrics.phase("icp"):
             pres = self._icp(
-                self._to(self.src_full), self._tgt_dev,
-                best_R[None], best_t[None], self._icp_params,
+                self._to(self.src_full), best_R[None], best_t[None], self._icp_params,
+                normals=self._nrm_dev,
             )
             R_p = pres.transform.R[0].cpu().numpy()
             t_p = pres.transform.t[0].cpu().numpy()
@@ -207,7 +246,7 @@ class GoIcpSolver:
         (``solver.py:389``)."""
         params = IcpParams(max_iter=0, rel_tol=0.0, trim_fraction=self.p.trim_fraction)
         res = self._icp(
-            self._to(self.src_full), self._tgt_dev,
+            self._to(self.src_full),
             np.asarray(R, np.float32)[None], np.asarray(t, np.float32)[None], params,
         )
         return float(res.sse[0])
@@ -271,7 +310,13 @@ class GoIcpSolver:
                 ]
                 tidx = np.sort(crng.choice(self.tgt.shape[0], nc, replace=False))
                 tgt_c = self.tgt[tidx]
-                cres = self._icp(self._to(src_c), self._to(tgt_c), R0, t0, self._icp_params)
+                # the full cloud's normals at the subset rows (solver.py:504)
+                nrm_c = (
+                    None if self._nrm_dev is None
+                    else self._nrm_dev.index_select(0, torch.as_tensor(tidx, device=self.device))
+                )
+                cres = self._icp(self._to(src_c), R0, t0, self._icp_params, normals=nrm_c,
+                                 tgt_dev=self._to(tgt_c), backend="exact")
                 cR, ct, c_sse, c_it = (
                     x.cpu().numpy()
                     for x in (cres.transform.R, cres.transform.t, cres.sse, cres.iters)

@@ -448,13 +448,35 @@ def screen_scan(ub_blk, lb_blk, thresh, group: bool = False):
     return torch.where(keep, ub, torch.full_like(ub, _SENTINEL)), lb, blocks
 
 
-def trimmed_sum_bisect(x, h: int, upper: bool, iters: int = 24):
+def ordered_row_sum(x):
+    """Row sums ``[..., n] → [...]`` in the order in which XLA's CPU backend
+    adds a row: windows of 32 in sequence (again over the window sums while
+    more than 32 remain), then the last ≤ 32 sums in sequence.  Only
+    element-wise adds, so the card and the CPU agree bit for bit."""
+    while x.shape[-1] > 32:
+        pad = (-x.shape[-1]) % 32
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        x = x.reshape(*x.shape[:-1], -1, 32)
+        acc = x[..., 0]
+        for k in range(1, 32):
+            acc = acc + x[..., k]
+        x = acc
+    acc = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def trimmed_sum_bisect(x, h: int, upper: bool, iters: int = 24, ordered: bool = False):
     """Sum of the ``h`` smallest entries per row of ``x [M, Np]`` by
     bisection on a value threshold (``bnb/se3_eval.py:30``, and the
     in-kernel reduction of ``mxu.py``'s trimmed kernels): after ``iters``
     halvings ``S(lo) + (h − C(lo))·lo ≤ trimmed_h ≤ S(lo) + (h − C(lo))·hi``
     with ``S``/``C`` the masked sum and count; ``upper`` picks the side.
-    Entries ≥ 1e29 are padding and never counted."""
+    Entries ≥ 1e29 are padding and never counted.  ``ordered``: ``S`` by
+    :func:`ordered_row_sum` and ``S + rem·τ`` rounded once, as the JAX
+    package's jitted CPU build computes them (a fused multiply-add)."""
     rowmax = torch.where(x < 1e29, x, torch.zeros_like(x)).amax(-1)
     lo = torch.zeros_like(rowmax)
     hi = rowmax + 1e-12
@@ -464,10 +486,14 @@ def trimmed_sum_bisect(x, h: int, upper: bool, iters: int = 24):
         take = cnt >= h
         lo, hi = torch.where(take, lo, mid), torch.where(take, mid, hi)
     sel = x <= lo[:, None]
-    S = torch.where(sel, x, torch.zeros_like(x)).sum(-1)
+    kept = torch.where(sel, x, torch.zeros_like(x))
     C = sel.sum(-1).to(torch.float32)
     rem = torch.clamp(h - C, min=0.0)
-    return S + rem * (hi if upper else lo)
+    tau = hi if upper else lo
+    if ordered:
+        # rem·τ is exact in f64; one rounding of the sum, as an FMA gives
+        return (ordered_row_sum(kept).double() + rem.double() * tau.double()).float()
+    return kept.sum(-1) + rem * tau
 
 
 def _staged(term, pv):

@@ -168,11 +168,14 @@ def test_params_from_dict_round_trips():
 ])
 def test_out_of_slice_options_raise(clouds, kw):
     """Options outside the port raise, naming the ROADMAP item.  The trimmed
-    path and unscreened R-rounds (K4) are in the port now: those two cases
-    must solve on the CPU path instead."""
+    path, unscreened R-rounds (K4), the plane metric, the exact and grid
+    bound backends and targets above ``mxu_max``/``icp_exact_max`` are in
+    the port now: those cases must solve on the CPU path instead (on a
+    32³ grid where one is built)."""
     src, tgt, _, _ = clouds
     if kw in IN_SLICE:
-        res = register(src, tgt, BnbParams(mse_threshold=1e-5, max_rounds=3, se3_pop=64, **kw),
+        res = register(src, tgt, BnbParams(mse_threshold=1e-5, max_rounds=3, se3_pop=64,
+                                           grid_resolution=32, **kw),
                        device="cpu")
         assert res.rounds > 0 and np.isfinite(res.sse) and res.rot_nodes > 0
         return
@@ -180,7 +183,9 @@ def test_out_of_slice_options_raise(clouds, kw):
         register(src, tgt, BnbParams(**kw), device="cpu")
 
 
-IN_SLICE = (dict(trim_fraction=0.1), dict(bound_backend="mxu", screen=False))
+IN_SLICE = (dict(trim_fraction=0.1), dict(bound_backend="mxu", screen=False),
+            dict(icp_metric="plane"), dict(bound_backend="grid"),
+            dict(bound_backend="exact"), dict(mxu_max=50), dict(icp_exact_max=50))
 
 
 def test_default_device_is_cuda(clouds, monkeypatch):

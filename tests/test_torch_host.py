@@ -100,3 +100,37 @@ def test_readers_match_jax(tmp_path):
         write(path, pts)
         np.testing.assert_array_equal(tio.load_cloud(path), jio.load_cloud(path))
         np.testing.assert_allclose(tio.load_cloud(path), pts, rtol=1e-6, atol=1e-6)
+
+
+ISOLATION = r"""
+import pkgutil, runpy, sys
+sys.modules["jax"] = None          # any import of them now raises ImportError
+sys.modules["goicp_tpu"] = None
+import goicp_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(goicp_tpu_torch.__path__, "goicp_tpu_torch.")
+         if m.name != "goicp_tpu_torch.__main__"]
+for name in names:
+    __import__(name)
+assert {"goicp_tpu_torch.cli", "goicp_tpu_torch.viz", "goicp_tpu_torch.nn.grid",
+        "goicp_tpu_torch.geo.normals", "goicp_tpu_torch.core.config",
+        "goicp_tpu_torch.io.writer"} <= set(names), names
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "goicp_tpu"))
+assert not [m for m in leaked if sys.modules[m] is not None], leaked
+print("imported", len(names))
+sys.argv = ["goicp_tpu_torch", "--help"]
+runpy.run_module("goicp_tpu_torch", run_name="__main__")
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port (the CLI and viz included) imports in a
+    process where ``jax`` and ``goicp_tpu`` cannot be imported, and
+    ``python -m goicp_tpu_torch --help`` runs there."""
+    import subprocess
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = subprocess.run([sys.executable, "-c", ISOLATION], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout and "--device" in out.stdout

@@ -94,12 +94,20 @@ def test_run_icp_unbatched_pose(problem):
 
 
 def test_out_of_slice_icp_options_raise(problem):
-    """The plane metric raises, naming the ROADMAP item; trimmed ICP is in
-    the port now and runs (its parity: tests/test_torch_trimmed.py)."""
+    """Trimmed ICP and the plane metric are in the port now and run (their
+    parity: tests/test_torch_trimmed.py, tests/test_torch_plane.py); the
+    plane metric without target normals raises ValueError, as in the JAX
+    package."""
     src, tgt, R0, t0 = problem
     init = RigidTransform(torch.from_numpy(R0), torch.from_numpy(t0))
     corr = exact_correspondence(torch.from_numpy(tgt))
     res = run_icp(torch.from_numpy(src), corr, init, IcpParams(trim_fraction=0.1))
     assert torch.isfinite(res.sse).all() and (res.iters > 0).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="normals"):
         run_icp(torch.from_numpy(src), corr, init, IcpParams(metric="plane"))
+    from goicp_tpu_torch.geo.normals import estimate_normals
+
+    t = torch.from_numpy(tgt)
+    res = run_icp(torch.from_numpy(src), exact_correspondence(t, normals=estimate_normals(t)),
+                  init, IcpParams(metric="plane"))
+    assert torch.isfinite(res.sse).all() and (res.iters > 0).all()
