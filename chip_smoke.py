@@ -52,7 +52,23 @@ Phases, each of which fails the run:
    K2-K6); the times of the new plain-PyTorch stages (EDT build, normals,
    grid bounds of one round, one plane step); 7d the 300-point subsets of
    5b on the card and on the CPU path on the "grid", "exact" and plane
-   paths.
+   paths;
+8. full-cloud certification, checkpoints and the nested engine: 8a
+   ``register_full_cert`` on the whole bunny source (40,256 points,
+   Rᵀ(target − t)) against the headline's target, subsets 8,192 → 16,384 →
+   32,768 → 40,256 on 20 s budgets (K1, K2, K3 must launch; the pose within
+   the limits; ``gap_full`` reported, ``sse_full`` equal to the CPU path's
+   score; the first grown subset equal on the card and the CPU path), with
+   K1 at its coverage shape (40,256 queries x 32,768 of them), and K2 and
+   K3 at the whole source's shape (792 nodes, 99 groups of 8) against
+   their plain versions (K2 and K3 rows of their own in the ``kernels``
+   line, with 8a's launches); 8b the headline solve interrupted at 200
+   rounds (snapshots every 25) and resumed to certification, at phase 4's
+   pose, from the snapshot written at round 200 while rounds were queued
+   and from the last one, written after the queue drained; 8c the headline pair on the nested engine, 30 s
+   budget (K1 only); 8d card against CPU on 5b's 300-point subsets: full
+   certs untrimmed and trimmed, a nested solve, and a snapshot written on
+   the card resumed on both.
 
 ``python3 chip_smoke.py --witness`` builds the kernels and runs only 7b's
 point-metric TOMLs, on the port's CPU path and on the card (minutes on the
@@ -289,8 +305,9 @@ def check_k1(chk, dev, S, T, rng, clock_hz, cli_q, cli_t):
     return recs
 
 
-def check_k3(chk, dev, S, T, rng, clock_hz, G):
-    """K3 at the T-round shape: se3_pop groups of 8 siblings."""
+def check_k3(chk, dev, S, T, rng, clock_hz, G, tag=""):
+    """K3 at the T-round shape: se3_pop groups of 8 siblings (``tag`` names
+    another path's shape in the row and the messages)."""
     import torch
 
     from goicp_tpu_torch.geo.rotation import axis_angle_rotation
@@ -313,14 +330,14 @@ def check_k3(chk, dev, S, T, rng, clock_hz, G):
         torch.cuda.synchronize()
         ref = fused.min_d2_groups_plain(*args)
         err = float((got - ref).abs().max())
-        chk.expect(err == 0.0, f"K3 {name}: max |d2 err| {err:.3g} (tol 0: same rounding)")
+        chk.expect(err == 0.0, f"K3{tag} {name}: max |d2 err| {err:.3g} (tol 0: same rounding)")
     ms = timed_ms(lambda: fused.min_d2_groups(srcT, wm, gp), 10)
     plain = timed_ms(lambda: fused.min_d2_groups_plain(srcT, wm, gp), 2)
     Q = ((S @ Rg.transpose(1, 2))[:, None] + t8[:, :, None]).reshape(-1, 3)   # [8G·N, 3]
     lib = library_min_ms(Q, T)
     del Q
     b, by = bound_ms(4.0 * (3 * N + 3 * NT + 48 * G + 8 * G * N), 22.0 * G * N * NT, clock_hz)
-    return _rec("K3 min_d2_groups (8-sibling grouped distances)",
+    return _rec(f"K3 min_d2_groups (8-sibling grouped distances){tag}",
                 "goicp_tpu_torch/csrc/min_d2_grouped.cu", "goicp_tpu/nn/mxu.py:265",
                 err, ms, plain, b, by, lib, f"{G} groups x 8 x {N} points x {NT} targets",
                 library_call=f"torch.cdist + amin over the {8 * G * N} transformed queries, "
@@ -343,8 +360,9 @@ def node_batch(rng, B, dev):
     return Rb, tb, af, gt
 
 
-def check_k2(chk, dev, S, T, rng, clock_hz, B):
-    """K2 at the largest R-round bucket (8·se3_pop nodes)."""
+def check_k2(chk, dev, S, T, rng, clock_hz, B, tag=""):
+    """K2 at the largest R-round bucket (8·se3_pop nodes; ``tag`` names
+    another path's shape in the row and the messages)."""
     import torch
 
     from goicp_tpu_torch.nn import fused
@@ -375,7 +393,7 @@ def check_k2(chk, dev, S, T, rng, clock_hz, B):
             torch.cuda.synchronize()
             ok, err, _, differ = screened_agree(ub, lb, *fused.bounds_nodes_plain(*args), th, th)
             worst = max(worst, err)
-            chk.expect(ok, f"K2 {label} {name}: max |err| {err:.3g} (tol 1e-5 + 1e-5·|ref|), "
+            chk.expect(ok, f"K2{tag} {label} {name}: max |err| {err:.3g} (tol 1e-5 + 1e-5·|ref|), "
                            f"screened-set differences {differ} (all within tol of thresh)")
         ms = timed_ms(lambda: fused.bounds_nodes(srcX, wm, params), 10)
         plain = timed_ms(lambda: fused.bounds_nodes_plain(srcX, wm, params), 2)
@@ -386,7 +404,7 @@ def check_k2(chk, dev, S, T, rng, clock_hz, B):
         k2[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=worst,
                          blocks_run=int(blocks.sum().item()), blocks_total=B * (srcX.shape[1] // tq))
     s = k2["screened"]
-    rec = _rec("K2 bounds_nodes (screened fused bounds)", "goicp_tpu_torch/csrc/bounds.cu",
+    rec = _rec(f"K2 bounds_nodes (screened fused bounds){tag}", "goicp_tpu_torch/csrc/bounds.cu",
                "goicp_tpu/nn/mxu.py:479",
                max(s["max_abs_err"], k2["unscreened"]["max_abs_err"]), s["ms"], s["plain_ms"],
                s["bound_ms"], s["bound_by"], None,
@@ -394,8 +412,8 @@ def check_k2(chk, dev, S, T, rng, clock_hz, B):
                f"({s['blocks_run']} of {s['blocks_total']} blocks run)",
                library_none="no PyTorch call computes a screened, deflated sum",
                unscreened=k2["unscreened"])
-    report("K2 screened", rec)
-    report("K2 unscreened", dict(k2["unscreened"], library_ms=None,
+    report(f"K2{tag} screened", rec)
+    report(f"K2{tag} unscreened", dict(k2["unscreened"], library_ms=None,
                                  shape=f"{B} nodes x {N} points x {NT} targets"))
     return rec
 
@@ -774,7 +792,7 @@ def solve_bunny(chk, dev, label, src, tgt, R_gt, t_gt, expect, trim: float = 0.0
         mse_true=mse_true, mse_threshold=params.mse_threshold, wall_s=wall,
         rot_err_deg=rot_err, t_err=t_err, t_err_over_extent=t_err / extent,
         icp_iters=res.icp_iters, launches=launches, k1_launches_by_shape=k1_shape_launches,
-        timers=timers,
+        timers=timers, R=R.tolist(), t=t.tolist(),
         counters={k: float(v) for k, v in res.metrics.counters.items()},
     )
     print(f"{label}: " + json.dumps({k: info[k] for k in (
@@ -1356,6 +1374,341 @@ def cli_phase(chk, dev, src_h, R_h, t_h, scale_h, psrc, ptgt, pR, pt, clock_hz):
     return out
 
 
+FULLCERT_WALL_S = 20.0          # 8a: BnB budget of each subset solve
+CHECKPOINT_ROUNDS = 200         # 8b: rounds before the interruption
+CHECKPOINT_EVERY = 25           # 8b: rounds between snapshots
+NESTED_WALL_S = 30.0            # 8c: BnB budget of the nested solve
+COVERAGE_TARGETS = 32768        # 8a: K1's coverage check against the largest grown subset
+
+
+def pose_limits(chk, label, R, t, R_gt, t_gt, extent):
+    """The pose against the truth: within 0.5° and 1 % of the extent."""
+    cos = np.clip((np.trace(np.asarray(R).T @ R_gt) - 1.0) / 2.0, -1.0, 1.0)
+    rot_err = float(np.degrees(np.arccos(cos)))
+    t_err = float(np.linalg.norm(np.asarray(t) - t_gt))
+    chk.expect(rot_err < 0.5 and t_err < 0.01 * extent,
+               f"{label} pose: rotation error {rot_err:.4f} deg (< 0.5), translation error "
+               f"{t_err:.3g} = {100 * t_err / extent:.3f}% of the extent (< 1%)")
+    return rot_err, t_err
+
+
+def check_k1_coverage(chk, dev, full, n_sub, clock_hz):
+    """K1 at the full-cloud certificate's coverage query: the whole source
+    (40,256 queries) against ``n_sub`` of its own points (the ring route),
+    so every subset point ties with itself at d² = 0; tol 0."""
+    import torch
+
+    from goicp_tpu_torch.nn import fused
+    from goicp_tpu_torch.nn.brute import nearest_neighbor
+
+    idx = np.sort(np.random.default_rng(777).choice(full.shape[0], n_sub, replace=False))
+    Q = torch.as_tensor(full, device=dev)
+    T = Q[torch.as_tensor(idx, device=dev)].contiguous()
+    d2, nn = fused.nearest_neighbor_mxu(Q, T)
+    torch.cuda.synchronize()
+    d2_p, nn_p = nearest_neighbor(Q, T)
+    err = float((d2 - d2_p).abs().max())
+    chk.expect(bool(torch.equal(nn, nn_p)) and bool(torch.equal(d2, d2_p))
+               and bool((d2[torch.as_tensor(idx, device=dev)] == 0).all()),
+               f"K1 coverage {full.shape[0]} x {n_sub}: indices equal, max |d2 err| {err:.3g}, "
+               f"every subset point its own nearest (tol 0: bit-equal)")
+    t4 = fused.pack_nn_targets(T)
+    ms = device_ms(lambda: fused.nearest_neighbor_mxu(Q, T, packed=t4), 10, clock_hz)
+    plain = timed_ms(lambda: nearest_neighbor(Q, T), 2)
+    lib = library_min_ms(Q, T)
+    nq, nt = Q.shape[0], T.shape[0]
+    b, by = bound_ms(4.0 * (3 * nq + 3 * nt + 2 * nq), 7.0 * nq * nt, clock_hz)
+    route = fused.nn_route(nq, t4.shape[0], fused._sm_count(Q.device.index))
+    rec = _rec(f"K1 coverage nearest_neighbor_mxu (full-cloud certificate's coverage order), "
+               f"{nq} queries x {nt} targets", "goicp_tpu_torch/csrc/nn_min_d2.cu",
+               "goicp_tpu/nn/mxu.py:152", err, ms, plain, b, by, lib,
+               f"{nq} queries x {nt} targets", library_call="torch.cdist + amin",
+               shape_key=[nq, nt], launch_route=dict(splits=route[0], queries_per_thread=route[1],
+                                                      targets_resident=False),
+               timing="device time per call (device_ms), targets packed once")
+    report("K1 coverage", rec)
+    return rec
+
+
+def fullcert_phase(chk, dev, src, tgt, R_gt, t_gt, scale, psrc, ptgt, pR, pt, headline,
+                   clock_hz):
+    """Phase 8: full-cloud certification, checkpoint/resume and the nested
+    engine.  8a ``register_full_cert`` on the whole bunny source against the
+    headline's target; 8b the headline solve interrupted by ``max_rounds``
+    and resumed from its snapshot; 8c the headline pair on the nested
+    engine; 8d card against CPU on 5b's 300-point subsets.  Returns the
+    records and the K1 coverage row."""
+    import torch
+
+    extent = float(np.linalg.norm(tgt.max(0) - tgt.min(0)))
+    full = (bunny_full()[1] * scale).astype(np.float32)             # Rᵀ(target − t), 40,256
+    out = {"K1 coverage": check_k1_coverage(chk, dev, full, COVERAGE_TARGETS, clock_hz)}
+    # K2 and K3 at the largest grown subset (the whole source), at the node
+    # batch and group count of se3_pop's auto rule there (bnb/se3.py)
+    pop = max(64, min(4096, int(32e6 / (8 * full.shape[0]))))
+    rng = np.random.default_rng(8)
+    S_full, T = torch.as_tensor(full, device=dev), torch.as_tensor(tgt, device=dev)
+    tag = " at the full cert's whole source"
+    out["K3 full cert"] = check_k3(chk, dev, S_full, T, rng, clock_hz, pop, tag)
+    report("K3 full cert", out["K3 full cert"])
+    out["K2 full cert"] = check_k2(chk, dev, S_full, T, rng, clock_hz, 8 * pop, tag)
+    out["full cert"] = phase_8a(chk, dev, full, tgt, R_gt, t_gt, extent)
+    out["checkpoint"] = phase_8b(chk, dev, src, tgt, R_gt, t_gt, headline)
+    out["nested"] = phase_8c(chk, dev, src, tgt, R_gt, t_gt, extent)
+    out["card vs cpu"] = phase_8d(chk, dev, psrc, ptgt, pR, pt)
+    return out
+
+
+def phase_8a(chk, dev, full, tgt, R_gt, t_gt, extent):
+    """8a: ``register_full_cert`` on the whole source at full width."""
+    import torch
+
+    from goicp_tpu_torch import BnbParams, make_solver
+    from goicp_tpu_torch.bnb import fullcert
+    from goicp_tpu_torch.nn import fused
+
+    mse_true = mse_at_truth(dev, full, tgt, R_gt, t_gt)
+    params = BnbParams(mse_threshold=MSE_FACTOR * mse_true, max_wall_s=FULLCERT_WALL_S)
+    idx0 = np.sort(np.random.default_rng(777).choice(full.shape[0], params.bound_points,
+                                                     replace=False))
+    n_grow = params.bound_points
+    grown = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        order = fullcert._coverage_order(full, full[idx0], d)
+        mask = np.zeros(full.shape[0], bool)
+        mask[idx0] = True
+        grown[key] = np.sort(np.concatenate([idx0, order[~mask[order]][:n_grow]]))
+    chk.expect(np.array_equal(grown["card"], grown["cpu"]),
+               f"8a the first grown subset ({grown['card'].shape[0]} points) is the same on "
+               "the card and on the CPU path")
+    solves = []
+    orig = fullcert.make_solver
+
+    def recording(*a, **k):
+        s = orig(*a, **k)
+        run = s.run
+
+        def timed_run(*x):
+            t0 = time.perf_counter()
+            r = run(*x)
+            torch.cuda.synchronize()
+            bnb = r.metrics.timers.get("bnb", 0.0)
+            solves.append(dict(subset=s.src.shape[0], wall_s=time.perf_counter() - t0,
+                               rounds=r.rounds, nodes=r.rot_nodes,
+                               nodes_per_s=r.rot_nodes / max(bnb, 1e-9), gap=r.gap,
+                               gap_full=r.gap_full, converged=bool(r.converged)))
+            print("8a refinement: " + json.dumps(solves[-1]), flush=True)
+            return r
+
+        s.run = timed_run
+        return s
+
+    print(f"8a: {full.shape[0]} source / {tgt.shape[0]} target points, mse at the true pose "
+          f"{mse_true:.6g}, mse_threshold {params.mse_threshold:.6g}", flush=True)
+    fullcert.make_solver = recording
+    try:
+        torch.cuda.synchronize()
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fullcert.register_full_cert(full, tgt, params, max_refinements=3, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fullcert.make_solver = orig
+    launches = dict(fused.launches)
+    shapes = {f"{q}x{t}": n for (q, t), n in sorted(fused.nn_launch_shapes.items())}
+    R, t = np.asarray(res.transform.R), np.asarray(res.transform.t)
+    sse_cpu = make_solver(full, tgt, params, device="cpu").score_full(R, t)
+    rot_err, t_err = pose_limits(chk, "8a full cert", R, t, R_gt, t_gt, extent)
+    out = dict(
+        wall_s=wall, refinements=solves, subset_sizes=[x["subset"] for x in solves],
+        gap_full=res.gap_full, sse_full=res.sse_full, sse_full_cpu=sse_cpu, sse=res.sse,
+        converged=bool(res.converged), rot_err_deg=rot_err, t_err=t_err, launches=launches,
+        k1_launches_by_shape=shapes, mse_true=mse_true, mse_threshold=params.mse_threshold)
+    print("8a: " + json.dumps({k: out[k] for k in (
+        "wall_s", "subset_sizes", "gap_full", "sse_full", "sse_full_cpu", "launches")}), flush=True)
+    for k in ("nearest_neighbor_mxu", "bounds_nodes", "min_d2_groups"):
+        chk.expect(launches[k] > 0, f"8a launched {k} {launches[k]} times")
+    plan = fullcert._subset_sizes(params.bound_points, full.shape[0], 2.0, 3)
+    met = res.gap_full is not None and res.gap_full <= params.mse_threshold * full.shape[0]
+    chk.expect([x["subset"] for x in solves] == plan[:len(solves)]
+               and (len(solves) == len(plan) or met),
+               f"8a subsets {[x['subset'] for x in solves]} of the plan {plan} (all of it, "
+               f"unless the target is met early: {met})")
+    chk.expect(res.gap_full is not None and res.gap_full >= 0.0,
+               f"8a gap_full {res.gap_full} reported and >= 0")
+    chk.expect(res.sse_full is not None and abs(res.sse_full - sse_cpu) <= 1e-5 * abs(sse_cpu),
+               f"8a sse_full {res.sse_full} vs the CPU path's score {sse_cpu} (rtol 1e-5)")
+    return out
+
+
+def phase_8b(chk, dev, src, tgt, R_gt, t_gt, headline):
+    """8b: the headline solve interrupted at ``CHECKPOINT_ROUNDS`` and
+    resumed from two of its snapshots: the first one written at that round,
+    while rounds were still queued (their popped parents re-included, their
+    children off the count), and the last one, written after the queue
+    drained."""
+    import dataclasses
+    import shutil
+
+    from goicp_tpu_torch import BnbParams, register
+    from goicp_tpu_torch.bnb import se3
+    from goicp_tpu_torch.nn import fused
+
+    ck = os.path.join(OUT_DIR, "checkpoint_8b.npz")
+    ck_q = os.path.join(OUT_DIR, "checkpoint_8b_inflight.npz")
+    for f in (ck, ck_q):
+        if os.path.exists(f):
+            os.remove(f)
+    p1, _ = solve_params(dev, src, tgt, R_gt, t_gt, max_rounds=CHECKPOINT_ROUNDS,
+                         checkpoint_path=ck, checkpoint_every=CHECKPOINT_EVERY)
+    queued = []
+    snapshot, save = se3.inflight_snapshot, se3.save_checkpoint
+
+    def counting(drv, inflight, nodes):
+        queued.append(sum(w["parents"][0].shape[0] for w in inflight))
+        return snapshot(drv, inflight, nodes)
+
+    def keeping(path, *a):
+        save(path, *a)
+        if queued[-1] and a[-2] == CHECKPOINT_ROUNDS and not os.path.exists(ck_q):
+            shutil.copy(path, ck_q)
+
+    se3.inflight_snapshot, se3.save_checkpoint = counting, keeping
+    try:
+        t0 = time.perf_counter()
+        r1 = register(src, tgt, p1, device=dev)
+        w1 = time.perf_counter() - t0
+    finally:
+        se3.inflight_snapshot, se3.save_checkpoint = snapshot, save
+    chk.expect(not r1.converged and r1.rounds == CHECKPOINT_ROUNDS and os.path.exists(ck_q),
+               f"8b interrupted at round {r1.rounds} (max_rounds {CHECKPOINT_ROUNDS}); "
+               f"snapshots with queued parents: {sum(1 for q in queued if q)} of {len(queued)}")
+    out = dict(interrupted=dict(rounds=r1.rounds, nodes=r1.rot_nodes,
+                                converged=bool(r1.converged), wall_s=w1),
+               headline_nodes=headline["nodes"])
+    for label, path in (("in flight", ck_q), ("drained", ck)):
+        if not os.path.exists(path):
+            continue
+        snap = dict(np.load(path))
+        mine = path[:-4] + "_resumed.npz"
+        shutil.copy(path, mine)
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        r2 = register(src, tgt, dataclasses.replace(p1, max_rounds=BnbParams().max_rounds,
+                                                     checkpoint_path=mine), device=dev)
+        w2 = time.perf_counter() - t0
+        dR = float(np.abs(np.asarray(r2.transform.R) - headline["R"]).max())
+        dt = float(np.abs(np.asarray(r2.transform.t) - headline["t"]).max())
+        out[label] = dict(
+            snapshot=dict(rounds=int(snap["rounds"]), nodes=int(snap["nodes"]),
+                          frontier=int(snap["lb"].shape[0])),
+            resumed=dict(rounds=r2.rounds, nodes=r2.rot_nodes, converged=bool(r2.converged),
+                         gap=r2.gap, wall_s=w2, launches=dict(fused.launches)),
+            dR=dR, dt=dt)
+        chk.expect(r2.converged and r2.gap == 0.0 and dR < 1e-4 and dt < 1e-4,
+                   f"8b resumed from the {label} snapshot of round {int(snap['rounds'])} "
+                   f"({int(snap['nodes'])} nodes, {int(snap['lb'].shape[0])} in its frontier): "
+                   f"converged {r2.converged}, gap {r2.gap}, pose within {max(dR, dt):.3g} of "
+                   f"phase 4's (< 1e-4); nodes {r2.rot_nodes} against the uninterrupted "
+                   f"{headline['nodes']}")
+    print("8b: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_8c(chk, dev, src, tgt, R_gt, t_gt, extent):
+    """8c: the headline pair on the nested engine."""
+    import torch
+
+    from goicp_tpu_torch import register
+    from goicp_tpu_torch.nn import fused
+
+    pn, _ = solve_params(dev, src, tgt, R_gt, t_gt, engine="nested", max_wall_s=NESTED_WALL_S)
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    rn = register(src, tgt, pn, device=dev)
+    torch.cuda.synchronize()
+    wn = time.perf_counter() - t0
+    ln = dict(fused.launches)
+    bnb = rn.metrics.timers.get("bnb", 0.0)
+    rot_err, t_err = pose_limits(chk, "8c nested", rn.transform.R, rn.transform.t, R_gt, t_gt,
+                                 extent)
+    out = dict(rounds=rn.rounds, rot_nodes=rn.rot_nodes, trans_nodes=rn.trans_nodes,
+                         trans_nodes_per_s=rn.trans_nodes / max(bnb, 1e-9),
+                         rot_nodes_per_s=rn.rot_nodes / max(bnb, 1e-9), bnb_s=bnb, wall_s=wn,
+                         converged=bool(rn.converged), gap=rn.gap, launches=ln,
+                         rot_err_deg=rot_err, t_err=t_err)
+    print("8c: " + json.dumps(out), flush=True)
+    chk.expect(ln["nearest_neighbor_mxu"] > 0 and rn.rounds > 0,
+               f"8c launched nearest_neighbor_mxu {ln['nearest_neighbor_mxu']} times in "
+               f"{rn.rounds} rounds")
+    chk.expect(all(v == 0 for k, v in ln.items() if k != "nearest_neighbor_mxu"),
+               f"8c launched no K2-K7: {ln}")
+    return out
+
+
+def phase_8d(chk, dev, psrc, ptgt, pR, pt):
+    """8d: card against CPU on 5b's 300-point subsets: full certs untrimmed
+    and trimmed, a nested solve, a snapshot resumed on both."""
+    import dataclasses
+
+    from goicp_tpu_torch import register
+    from goicp_tpu_torch.bnb import fullcert
+
+    rng = np.random.default_rng(3)
+    s = psrc[np.sort(rng.choice(psrc.shape[0], 300, replace=False))]
+    t = ptgt[np.sort(rng.choice(ptgt.shape[0], 300, replace=False))]
+    kw = dict(se3_pop=64, init_multistart=8, refine_top_k=2, max_wall_s=1e9)
+    out = {}
+    for label, trim in (("full cert", 0.0), ("trimmed full cert", 0.25)):
+        params, _ = solve_params(dev, s, t, pR, pt, trim, bound_points=100, max_rounds=10, **kw)
+        rg = fullcert.register_full_cert(s, t, params, max_refinements=3, device=dev)
+        rc = fullcert.register_full_cert(s, t, params, max_refinements=3, device="cpu")
+        same = [rg.metrics.counters[k] == rc.metrics.counters[k]
+                for k in ("fullcert_subset", "fullcert_refinements")]
+        ok = (all(same) and rg.rounds == rc.rounds and rg.rot_nodes == rc.rot_nodes
+              and abs(rg.gap_full - rc.gap_full) <= 1e-5 * abs(rc.gap_full))
+        chk.expect(ok, f"8d {label} card vs CPU: subset {rg.metrics.counters['fullcert_subset']}"
+                       f" vs {rc.metrics.counters['fullcert_subset']}, rounds {rg.rounds} vs "
+                       f"{rc.rounds}, nodes {rg.rot_nodes} vs {rc.rot_nodes}, gap_full "
+                       f"{rg.gap_full:.7g} vs {rc.gap_full:.7g}")
+        out[label] = dict(subset=rg.metrics.counters["fullcert_subset"],
+                                         rounds=rg.rounds, nodes_gpu=rg.rot_nodes,
+                                         nodes_cpu=rc.rot_nodes, gap_full_gpu=rg.gap_full,
+                                         gap_full_cpu=rc.gap_full)
+    params, _ = solve_params(dev, s, t, pR, pt, 0.0, engine="nested", rot_pop=4, inner_cap=16,
+                             inner_levels=5, max_rounds=5, init_multistart=8, refine_top_k=2,
+                             max_wall_s=1e9)
+    rg, rc = register(s, t, params, device=dev), register(s, t, params, device="cpu")
+    chk.expect((rg.rounds, rg.rot_nodes, rg.trans_nodes) == (rc.rounds, rc.rot_nodes,
+                                                             rc.trans_nodes),
+               f"8d nested card vs CPU: rounds {rg.rounds} vs {rc.rounds}, rot nodes "
+               f"{rg.rot_nodes} vs {rc.rot_nodes}, trans nodes {rg.trans_nodes} vs "
+               f"{rc.trans_nodes}")
+    out["nested"] = dict(rounds=rg.rounds, rot_nodes=[rg.rot_nodes, rc.rot_nodes],
+                                        trans_nodes=[rg.trans_nodes, rc.trans_nodes])
+    ck = os.path.join(OUT_DIR, "checkpoint_8d.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    params, _ = solve_params(dev, s, t, pR, pt, 0.0, checkpoint_path=ck, checkpoint_every=5,
+                             max_rounds=10, **kw)
+    register(s, t, params, device=dev)
+    resumed = {}
+    for d in ("cuda", "cpu"):
+        mine = os.path.join(OUT_DIR, f"checkpoint_8d_{d}.npz")
+        with open(ck, "rb") as f_in, open(mine, "wb") as f_out:
+            f_out.write(f_in.read())
+        r = register(s, t, dataclasses.replace(params, checkpoint_path=mine, max_rounds=20),
+                     device=dev if d == "cuda" else d)
+        resumed[d] = (r.rounds, r.rot_nodes)
+    chk.expect(resumed["cuda"] == resumed["cpu"],
+               f"8d snapshot written on the card, resumed on the card and on the CPU: "
+               f"(rounds, nodes) {resumed['cuda']} vs {resumed['cpu']}")
+    out["resume"] = resumed
+    return out
+
+
 # (key, launch counter, the phase whose solve is the kernel's main path);
 # K1 has a row per shape (k1_shapes) and counts that shape's launches
 KERNELS = (
@@ -1363,8 +1716,11 @@ KERNELS = (
     ("K1 coarse", "nearest_neighbor_mxu", "solve"),
     ("K1 multistart", "nearest_neighbor_mxu", "solve"),
     ("K1 cli", "nearest_neighbor_mxu", "cli mode 1"),
+    ("K1 coverage", "nearest_neighbor_mxu", "full cert"),
     ("K2", "bounds_nodes", "solve"),
+    ("K2 full cert", "bounds_nodes", "full cert"),
     ("K3", "min_d2_groups", "solve"),
+    ("K3 full cert", "min_d2_groups", "full cert"),
     ("K4", "min_d2_nodes", "trimmed solve"),
     ("K5", "bounds_nodes_trimmed", "trimmed screen solve"),
     ("K6", "bounds_groups_trimmed", "trimmed screen solve"),
@@ -1429,6 +1785,16 @@ def main() -> int:
     print(f"phase 7: {cli_out['phase_s']:.1f} s", flush=True)
     for k in ("mode 4 plane", "mode 1", "mode 1 plane", "mode 2", "mode 2 plane", "grid solve"):
         phases[f"cli {k}" if k != "grid solve" else k] = cli_out[k]
+    t8 = time.perf_counter()
+    headline = dict(R=np.asarray(phases["solve"]["R"]), t=np.asarray(phases["solve"]["t"]),
+                    nodes=phases["solve"]["nodes"])
+    fc_out = fullcert_phase(chk, dev, src, tgt, R_gt, t_gt, scale, psrc, ptgt, pR, pt, headline,
+                            clock_mhz * 1e6)
+    for k in ("K1 coverage", "K2 full cert", "K3 full cert"):
+        recs[k] = fc_out.pop(k)
+    phases["full cert"] = fc_out["full cert"]
+    fc_out["phase_s"] = time.perf_counter() - t8
+    print(f"phase 8: {fc_out['phase_s']:.1f} s", flush=True)
     prof = None
     if "--profile" in sys.argv[1:]:
         prof = {"solve": profile_solve(chk, dev, "solve", src, tgt, R_gt, t_gt),
@@ -1464,7 +1830,8 @@ def main() -> int:
         json.dump(dict(card=card, kind=kind, clock_mhz=clock_mhz, kernels=kernels_line,
                        solve=phases["solve"], trimmed_solve=phases["trimmed solve"],
                        trimmed_screen_solve=phases["trimmed screen solve"],
-                       small=small, small_trimmed=small_trim, cli=cli_out, failed=chk.failed,
+                       small=small, small_trimmed=small_trim, cli=cli_out, phase8=fc_out,
+                       failed=chk.failed,
                        total_s=time.perf_counter() - t_start), f, indent=1)
     if prof is not None:
         with open(os.path.join(OUT_DIR, "chip_smoke_profile.json"), "w") as f:

@@ -3,11 +3,13 @@
 The port sits beside the JAX package, which stays the reference, and
 imports nothing from it.  It carries the reference-TOML CLI and its five
 run modes (``python -m goicp_tpu_torch scenario.toml``,
-:mod:`goicp_tpu_torch.cli`) and the certified flat SE(3) Go-ICP solve of
-one pair (:func:`register`, :func:`make_solver`), untrimmed and trimmed,
-point or plane metric, on the fused bounds or a distance grid, on Hopper
-kernels written in CUDA C++ (``csrc/``, K1-K7, one for each Pallas kernel
-of the JAX package; see :mod:`goicp_tpu_torch.nn.fused`).
+:mod:`goicp_tpu_torch.cli`) and the certified Go-ICP solve of one pair
+(:func:`register`, :func:`make_solver`) on the flat SE(3) or the nested
+engine, untrimmed and trimmed, point or plane metric, on the fused bounds
+or a distance grid, with checkpoint/resume and full-cloud certification
+(:func:`goicp_tpu_torch.bnb.register_full_cert`), on Hopper kernels
+written in CUDA C++ (``csrc/``, K1-K7, one for each Pallas kernel of the
+JAX package; see :mod:`goicp_tpu_torch.nn.fused`).
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs each kernel's plain PyTorch version.
 

@@ -9,7 +9,7 @@ import sys
 
 if len(sys.argv) > 1 and sys.argv[1] == "serve":
     raise NotImplementedError(
-        "serve is not ported yet (ROADMAP queue 1, item 10: serving)"
+        "serve is not ported yet (ROADMAP queue 1, item 5: serving)"
     )
 
 from goicp_tpu_torch.cli import main  # noqa: E402

@@ -39,6 +39,8 @@ def _bind(lib):
     lib.gn_frontier_pop_best.argtypes = [
         ctypes.c_int64, ctypes.c_int64, _f32p, _f32p, _f32p,
     ]
+    lib.gn_frontier_dump.restype = ctypes.c_int64
+    lib.gn_frontier_dump.argtypes = [ctypes.c_int64, _f32p, _f32p, _f32p]
     lib.gn_frontier_prune.restype = ctypes.c_int64
     lib.gn_frontier_prune.argtypes = [ctypes.c_int64, ctypes.c_float]
     lib.gn_frontier_min_lb.restype = ctypes.c_float

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from goicp_tpu_torch.nn.fused import _sq3
+from goicp_tpu_torch.nn.fused import _sq3_fma, sqrt_rn
 from goicp_tpu_torch.nn.grid import DistanceGrid, lookup_sq_nearest, lookup_sq_trilinear
 
 _SQRT3 = math.sqrt(3.0)
@@ -52,8 +52,9 @@ class BoundsEvaluator:
         conservative: bool = True,
     ):
         self.src = src                                     # [N,3]
-        # ≙ normData, jly_goicp.cpp:142; summed ((x² + y²) + z²) like XLA
-        self.norms = torch.sqrt(_sq3(src))
+        # ≙ normData, jly_goicp.cpp:142; rounded as the jitted
+        # jnp.linalg.norm: fused multiply-adds, a correctly rounded root
+        self.norms = sqrt_rn(_sq3_fma(src))
         self.grid = grid
         self.n_points = int(src.shape[0])
         self.trim_fraction = float(trim_fraction)

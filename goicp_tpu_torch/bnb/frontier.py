@@ -11,10 +11,10 @@ Two implementations with one interface:
 - :class:`NativeFrontier` — C++ introselect (``_native/goicp_native.cpp``),
   no concat/argsort churn per round.
 
-Payload layout of the SE(3) product frontier:
-``[rx, ry, rz, rspan, tx, ty, tz, tspan]`` (dim 8).  Copied from the JAX
-package's ``bnb/frontier.py`` (the nested engine's cube frontier is not
-ported yet).
+Payload layouts used by the solvers (copied from the JAX package's
+``bnb/frontier.py``):
+- nested rotation frontier: ``[cx, cy, cz, span]`` (dim 4, :class:`Frontier`)
+- SE(3) product frontier: ``[rx, ry, rz, rspan, tx, ty, tz, tspan]`` (dim 8)
 """
 
 from __future__ import annotations
@@ -78,6 +78,10 @@ class PyFrontier:
     def min_lb(self) -> float:
         return float(self.lb.min()) if len(self) else float("inf")
 
+    def dump(self):
+        """Snapshot for checkpointing: ``(payload, lb, ub)`` copies."""
+        return self.payload.copy(), self.lb.copy(), self.ub.copy()
+
 
 class NativeFrontier:
     """C++ SoA frontier: introselect batch pops, in-place prune."""
@@ -139,6 +143,21 @@ class NativeFrontier:
             return float("inf")
         return float(self._n.gn_frontier_min_lb(self._h))
 
+    def dump(self):
+        """Snapshot for checkpointing: ``(payload, lb, ub)``."""
+        n = len(self)
+        pay = np.empty((max(n, 1), self.dim), np.float32)
+        lb = np.empty(max(n, 1), np.float32)
+        ub = np.empty(max(n, 1), np.float32)
+        if n:
+            self._n.gn_frontier_dump(
+                self._h,
+                pay.ctypes.data_as(_F32P),
+                lb.ctypes.data_as(_F32P),
+                ub.ctypes.data_as(_F32P),
+            )
+        return pay[:n], lb[:n], ub[:n]
+
 
 def make_frontier(dim: int):
     """Native frontier when the C++ runtime is available, numpy otherwise."""
@@ -146,3 +165,40 @@ def make_frontier(dim: int):
         return NativeFrontier(dim)
     except RuntimeError:
         return PyFrontier(dim)
+
+
+class Frontier:
+    """Cube frontier of the nested engine (payload = center[3] + span)."""
+
+    def __init__(self, impl=None):
+        self._f = impl if impl is not None else PyFrontier(4)
+
+    def __len__(self):
+        return len(self._f)
+
+    def push(self, center, span, lb, ub=None):
+        span = np.asarray(span, np.float32).reshape(-1)
+        if ub is None:
+            ub = np.full(span.size, np.inf, np.float32)
+        pay = np.concatenate(
+            [np.asarray(center, np.float32).reshape(-1, 3), span[:, None]], axis=1
+        )
+        self._f.push(pay, lb, ub)
+
+    def pop_best(self, k: int):
+        pay, lb, ub = self._f.pop_best(k)
+        return pay[:, :3], pay[:, 3], lb, ub
+
+    def prune(self, threshold: float) -> int:
+        return self._f.prune(threshold)
+
+    def min_lb(self) -> float:
+        return self._f.min_lb()
+
+    def dump(self):
+        """Snapshot for checkpointing: ``(payload [K,4], lb, ub)``."""
+        return self._f.dump()
+
+
+def make_cube_frontier() -> Frontier:
+    return Frontier(make_frontier(4))

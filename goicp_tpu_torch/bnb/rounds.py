@@ -121,6 +121,20 @@ class Se3RoundDriver:
             np.full(1, np.inf, np.float32),
         )
 
+    def reset_frontiers(self):
+        self.fR = make_frontier(8)
+        self.fT = make_frontier(8)
+
+    def dump_frontiers(self):
+        """``(payload, lb, ub)`` of both frontiers concatenated (checkpoints)."""
+        payR, lbR, ubR = self.fR.dump()
+        payT, lbT, ubT = self.fT.dump()
+        return (
+            np.concatenate([payR, payT]),
+            np.concatenate([lbR, lbT]),
+            np.concatenate([ubR, ubT]),
+        )
+
     def f_len(self) -> int:
         return len(self.fR) + len(self.fT)
 

@@ -1,6 +1,5 @@
 """Flat SE(3) product-space BnB — the global solver engine (port of the JAX
-package's ``bnb/se3.py``, single device, without the device mesh and
-checkpoints).
+package's ``bnb/se3.py``, single device, without the device mesh).
 
 One best-first BnB over ``SO(3) × R³``.  Each node is a (rotation cube,
 translation cube) pair with
@@ -10,21 +9,44 @@ translation cube) pair with
 
 and splits 8-way along whichever cube contributes more uncertainty.  Every
 round pops a batch from the native frontier, evaluates all children's bounds
-in one queued device round and refines the best few by batched ICP.
+in one queued device round and refines the best few by batched ICP.  With
+``checkpoint_path`` the frontiers and the incumbent are saved every
+``checkpoint_every`` rounds and a solve resumes from the file when it
+exists; the snapshot's format is the JAX package's, so either package
+resumes the other's.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from collections import deque
 from typing import Optional
 
+import numpy as np
+
 from goicp_tpu_torch.bnb.params import GoIcpResult
 from goicp_tpu_torch.bnb.rounds import Se3RoundDriver
-from goicp_tpu_torch.bnb.solver import GoIcpSolver
+from goicp_tpu_torch.bnb.solver import GoIcpSolver, load_checkpoint, save_checkpoint
 from goicp_tpu_torch.core.progress import SolverState
 from goicp_tpu_torch.core.types import RigidTransform
+
+
+def inflight_snapshot(drv, inflight, nodes: int):
+    """What a checkpoint holds (``se3.py:158``): the frontiers, plus the
+    popped parents of the rounds still queued (in neither frontier nor any
+    pushed child; a resume re-expands them), and the node count ``nodes``
+    less those rounds' children, which are already counted.  Returns
+    ``(payload, lb, ub, nodes)``."""
+    pay, lb, ub = drv.dump_frontiers()
+    for w in inflight:
+        ppay, plb, pub = w["parents"]
+        if ppay.shape[0]:
+            pay = np.concatenate([pay, ppay])
+            lb = np.concatenate([lb, plb])
+            ub = np.concatenate([ub, pub])
+    return pay, lb, ub, nodes - sum(pt[-1] for w in inflight for pt in w["parts"])
 
 
 class GoIcpSolverSE3(GoIcpSolver):
@@ -56,12 +78,38 @@ class GoIcpSolverSE3(GoIcpSolver):
         drv.push_root()
         inflight = deque()
 
+        if p.checkpoint_path and os.path.exists(p.checkpoint_path):
+            ck = load_checkpoint(p.checkpoint_path)
+            drv.reset_frontiers()
+            drv.push_classified(ck["payload"], ck["lb"], ck["ub"])
+            if float(ck["best_sse"]) < drv.best_sse:
+                drv.best_sse = float(ck["best_sse"])
+                drv.best_R, drv.best_t = ck["best_R"], ck["best_t"]
+            drv.leaf_lb = float(ck["leaf_lb"])
+            rounds = int(ck["rounds"])
+            m.count("se3_nodes", int(ck["nodes"]))
+            self.log.info(
+                "resumed from %s: round %d, frontier %d, best sse %.6g",
+                p.checkpoint_path, rounds, drv.f_len(), drv.best_sse,
+            )
+
+        def checkpoint():
+            """Frontiers + incumbent, with the queued rounds' parents."""
+            pay, lb, ub, nodes = inflight_snapshot(
+                drv, inflight, m.counters.get("se3_nodes", 0))
+            save_checkpoint(
+                p.checkpoint_path, pay, lb, ub, drv.best_R, drv.best_t,
+                drv.best_sse, drv.leaf_lb, rounds, nodes,
+            )
+
         def absorb(work):
             """Absorb one round, then the engine-side bookkeeping."""
             nonlocal converged
             drv.absorb(work)
             if drv.best_sse <= self.sse_thresh:
                 converged = True
+            if p.checkpoint_path and rounds % max(p.checkpoint_every, 1) == 0:
+                checkpoint()
             if rounds % 10 == 0:
                 self.log.info(
                     "round %d: best=%.5g frontier=%d+%d min_lb=%.4g leaf_lb=%.4g",

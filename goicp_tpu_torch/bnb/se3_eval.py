@@ -57,7 +57,7 @@ def _deflate_and_reduce(d2, norms, slack, max_angle, t_span, mask, *,
     translation corner radius, then (trimmed) sums (``se3_eval.py:60``)."""
     M, Np = d2.shape
     drop = _drop(h, N)
-    d = torch.sqrt(torch.clamp(d2, min=0.0))
+    d = fused.sqrt_rn(torch.clamp(d2, min=0.0))
     d_lo = torch.clamp(d - slack, min=0.0)
     d_hi = d + slack
     gamma_r = rotation_displacement(max_angle, norms)     # [M, N]
@@ -158,19 +158,62 @@ def evaluate_se3_groups_screened(src, norms, tgt, slack, thresh, R, max_angle,
     return _masked(mask, ub, lb)
 
 
+def _target_tiles(tgt, tgt_tile: int):
+    """Targets padded at 1e15 to whole ``tgt_tile`` tiles, ``[Tt, tile_t,
+    3]``, and their ``|t|²`` tiles, summed as the JAX package's jitted code
+    sums them (``se3_eval.py:178``, ``device_inner.py:144``)."""
+    padt = (-tgt.shape[0]) % tgt_tile
+    if padt:
+        tgt = torch.cat([tgt, torch.full((padt, 3), 1e15, dtype=tgt.dtype,
+                                         device=tgt.device)])
+    tiles = tgt.reshape(-1, tgt_tile, 3)
+    return tiles, fused._sq3_fma(tiles)
+
+
+# query rows of one ``[X, targets]`` block of the exact expansion
+_EXACT_ROWS = 1 << 14
+# nearest candidates per query whose d² is rounded as XLA rounds it
+_EXACT_CANDIDATES = 8
+_U32 = 2.0 ** -24
+
+
 def _exact_min_d2(pts, tgt_tiles, tgt_norm_tiles):
     """Exact min squared distance of ``pts [..., 3]`` over target tiles
     ``[Tt, tile_t, 3]`` (padded at 1e15) by the ``|p|² − 2p·t + |t|²``
-    expansion, one matmul per tile (``device_inner.py:77``); the
-    per-step intermediate is ``[X, tile_t]``."""
+    expansion (``device_inner.py:62``), every term rounded as the jitted
+    JAX function rounds it: the K = 3 product and ``|p|²`` with the single
+    roundings of XLA's CPU dot and reduce (:func:`~goicp_tpu_torch.nn.fused.fma`),
+    so the result is bit-equal to it.
+
+    Only the min over targets is returned, so the exact rounding is paid on
+    a few candidates: an f32 matmul gives every ``|t|² − 2p·t`` to within
+    δ = 32·2⁻²⁴·(|p|·max|t| + max|t|²) of its XLA-rounded value, so the
+    minimum lies among the targets within 2δ of the matmul's minimum.  The
+    ``_EXACT_CANDIDATES`` smallest are rounded exactly; a query with more
+    targets inside 2δ (near-equidistant targets) is done over all of them."""
     shape = pts.shape[:-1]
     flat = pts.reshape(-1, 3)
-    pn = fused._sq3(flat)
-    best = torch.full_like(pn, _INF)
-    for t_tile, tn in zip(tgt_tiles, tgt_norm_tiles):
-        d2 = tn[None, :] - 2.0 * (flat @ t_tile.T)
-        best = torch.minimum(best, d2.amin(dim=-1))
-    return torch.clamp(best + pn, min=0.0).reshape(shape)
+    tgt = tgt_tiles.reshape(-1, 3)
+    tn = tgt_norm_tiles.reshape(-1)
+    real = tn < 1e29                                 # not the 1e15 padding
+    r_max = float(torch.sqrt(tn[real].max())) if bool(real.any()) else 0.0
+    k = min(_EXACT_CANDIDATES, tgt.shape[0])
+    out = torch.empty(flat.shape[0], dtype=flat.dtype, device=flat.device)
+    for r0 in range(0, flat.shape[0], _EXACT_ROWS):
+        q = flat[r0:r0 + _EXACT_ROWS]
+        approx = tn[None, :] - 2.0 * (q @ tgt.T)                       # [X, Mt]
+        vals, cand = torch.topk(approx, k, dim=1, largest=False, sorted=True)
+        qn = torch.sqrt(fused._sq3(q))
+        margin = 64.0 * _U32 * (qn * r_max + r_max * r_max)
+        d2 = tn[cand] - 2.0 * fused._dot3_fma(q[:, None, :], tgt[cand])
+        best = d2.amin(dim=1)
+        if k < tgt.shape[0]:
+            crowded = torch.nonzero(vals[:, -1] <= vals[:, 0] + margin).reshape(-1)
+            if crowded.numel():
+                full = tn[None, :] - 2.0 * fused._dot3_fma(q[crowded][:, None, :], tgt[None])
+                best[crowded] = full.amin(dim=1)
+        out[r0:r0 + q.shape[0]] = torch.clamp(best + fused._sq3_fma(q), min=0.0)
+    return out.reshape(shape)
 
 
 def evaluate_se3_nodes(src, norms, grid, tgt, slack, R, max_angle, t_c, t_span,
@@ -189,12 +232,7 @@ def evaluate_se3_nodes(src, norms, grid, tgt, slack, R, max_angle, t_c, t_span,
     dev = src.device
     drop = _drop(h, N)
     if backend == "exact":
-        nt = tgt.shape[0]
-        padt = (-nt) % tgt_tile
-        if padt:
-            tgt = torch.cat([tgt, torch.full((padt, 3), 1e15, dtype=tgt.dtype, device=dev)])
-        tgt_tiles = tgt.reshape(-1, tgt_tile, 3)
-        tgt_norm_tiles = (tgt_tiles * tgt_tiles).sum(-1)
+        tgt_tiles, tgt_norm_tiles = _target_tiles(tgt, tgt_tile)
 
     gamma_r = rotation_displacement(max_angle, norms)          # [M,N]
     gamma_t = (_SQRT3 * t_span)[:, None]                        # [M,1]
@@ -208,15 +246,17 @@ def evaluate_se3_nodes(src, norms, grid, tgt, slack, R, max_angle, t_c, t_span,
             s_tile = torch.nn.functional.pad(s_tile, (0, 0, 0, tile - n_real))
             g_tile = torch.nn.functional.pad(g_tile, (0, tile - n_real))
         m_tile = (torch.arange(tile, device=dev) < n_real).to(torch.float32)
+        # R·p by a matmul, which adds the K = 3 products as XLA's CPU dot
+        # does (fused._dot3_fma: tests/test_torch_grid.py checks the bits)
         pts = s_tile[None] @ Rt + t_c[:, None, :]                # [M,tile,3]
         if backend == "exact":
-            d = torch.sqrt(_exact_min_d2(pts, tgt_tiles, tgt_norm_tiles))
+            d = fused.sqrt_rn(_exact_min_d2(pts, tgt_tiles, tgt_norm_tiles))
             # slack: the f32-cancellation allowance of the expansion
             d_lo = torch.clamp(d - slack, min=0.0)
             d_hi = d + slack
         else:
             val, esc = lookup_sq(grid, pts, lookup)
-            d = torch.sqrt(torch.clamp(val, min=0.0))
+            d = fused.sqrt_rn(torch.clamp(val, min=0.0))
             d_lo = torch.clamp(d - esc - slack, min=0.0)
             d_hi = d + esc + slack
         ub_c = (d_hi * d_hi) * m_tile

@@ -1,21 +1,25 @@
-"""Go-ICP solver set-up, ICP refinement, scoring and the entry points (port
-of the parts of the JAX package's ``bnb/solver.py`` that the flat SE(3)
-engine uses).
+"""Go-ICP solver set-up, ICP refinement, scoring, checkpoint files and the
+entry points (port of the JAX package's ``bnb/solver.py``).
 
 :func:`register` / :func:`make_solver` build a :class:`GoIcpSolverSE3`
-(``bnb/se3.py``).  Set-up picks the bound backend (``auto_backend``: the
-fused kernels up to ``mxu_max`` targets, the distance grid above) and the
-ICP backend (exact correspondences up to ``icp_exact_max`` targets, the
-grid's index field above), builds or reuses the distance grid when either
-needs it, and estimates target normals for ``icp_metric="plane"``.  Options
-this port does not run yet raise ``NotImplementedError`` naming the ROADMAP
-item that adds them.
+(``bnb/se3.py``, the flat product-space engine) or, for
+``engine="nested"``, a :class:`GoIcpSolverNested` (``bnb/nested.py``).
+Set-up picks the bound backend (``auto_backend``: the fused kernels up to
+``mxu_max`` targets, the distance grid above) and the ICP backend (exact
+correspondences up to ``icp_exact_max`` targets, the grid's index field
+above), builds the distance grid when either needs it (or reuses a
+caller's ``grid=``), and estimates target normals for
+``icp_metric="plane"`` (or takes a caller's ``normals=``).  ``bound_idx``
+pins the solve subset (full-cloud certification, ``bnb/fullcert.py``).
+Device meshes on the SE(3) engine raise ``NotImplementedError`` naming the
+ROADMAP item that adds them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -42,6 +46,9 @@ _SQRT3 = math.sqrt(3.0)
 
 __all__ = ["BnbParams", "GoIcpResult", "GoIcpSolver", "make_solver", "register"]
 
+_CHECKPOINT_KEYS = ("payload", "lb", "ub", "best_R", "best_t", "best_sse", "leaf_lb",
+                    "rounds", "nodes")
+
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item!r})")
@@ -65,19 +72,39 @@ def _check_params(params: BnbParams):
         raise ValueError(
             f"rotation_param must be one of {sorted(_PARAMS)}, got {params.rotation_param!r}"
         )
-    if params.engine == "nested":
-        _not_ported("engine='nested'", "The nested engine")
-    if max(params.mesh_cubes, params.mesh_points) > 1:
-        _not_ported("mesh_cubes/mesh_points > 1", "Distribution")
-    if params.checkpoint_path:
-        _not_ported("checkpoint_path", "Checkpoint and resume")
+    if params.engine == "se3" and max(params.mesh_cubes, params.mesh_points) > 1:
+        _not_ported("mesh_cubes/mesh_points > 1 on the SE(3) engine", "Distribution")
+
+
+def save_checkpoint(path: str, payload, lb, ub, best_R, best_t, best_sse: float,
+                    leaf_lb: float, rounds: int, nodes: int):
+    """Write a BnB snapshot in the JAX package's ``np.savez`` format
+    (``se3.py:170``, ``solver.py:587``), through a temporary file and an
+    atomic rename, so either package resumes the other's."""
+    tmp = path + ".tmp.npz"
+    np.savez(
+        tmp, payload=payload, lb=lb, ub=ub,
+        best_R=np.asarray(best_R), best_t=np.asarray(best_t),
+        best_sse=np.float32(best_sse), leaf_lb=np.float32(leaf_lb),
+        rounds=np.int64(rounds), nodes=np.int64(nodes),
+    )
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> dict:
+    """A snapshot written by :func:`save_checkpoint` (or the JAX package)."""
+    with np.load(path) as ck:
+        return {k: ck[k] for k in _CHECKPOINT_KEYS}
 
 
 class GoIcpSolver:
     """Globally-optimal registration of ``src`` onto ``tgt`` on one device:
     the clouds on the device, the distance grid and target normals where
     needed, the bound constants and the batched ICP refiner
-    (``bnb/solver.py:96``).  ``device=None`` means CUDA."""
+    (``bnb/solver.py:96``).  ``device=None`` means CUDA.  ``grid`` and
+    ``normals`` are a caller's distance grid and target normals, reused
+    when they serve this solve; ``bound_idx`` is an explicit solve subset
+    of ``src``."""
 
     def __init__(
         self,
@@ -86,6 +113,9 @@ class GoIcpSolver:
         params: BnbParams = BnbParams(),
         progress: Optional[ProgressBus] = None,
         device=None,
+        grid=None,
+        normals=None,
+        bound_idx=None,
     ):
         _check_params(params)
         self.device = resolve_device(device)
@@ -96,7 +126,15 @@ class GoIcpSolver:
         self.progress = progress or ProgressBus()
         self.metrics = Metrics()
         self.log = get_logger()
-        if self.src.shape[0] > params.bound_points:
+        if bound_idx is not None:
+            # explicit solve subset (bnb.fullcert grows it between
+            # refinements with the worst-covered points)
+            self.src = self.src_full[np.sort(np.asarray(bound_idx))]
+            self.log.info(
+                "BnB solves on an explicit %d-point subset of %d",
+                self.src.shape[0], self.src_full.shape[0],
+            )
+        elif self.src.shape[0] > params.bound_points:
             # deterministic thinning for the solve; the full cloud is kept
             # for the final polish
             idx = np.random.default_rng(777).choice(
@@ -125,7 +163,7 @@ class GoIcpSolver:
 
         self._src_dev = torch.as_tensor(self.src, device=self.device)
         self._tgt_dev = torch.as_tensor(self.tgt, device=self.device)
-        self.grid = self._grid()
+        self.grid = self._grid(grid)
         self.ev = BoundsEvaluator(
             self._src_dev, self.grid, trim_fraction=params.trim_fraction,
             lookup=params.lookup, conservative=params.conservative,
@@ -150,7 +188,11 @@ class GoIcpSolver:
         # ε-certificate do not depend on the metric (solver.py:266-279)
         self._nrm_dev = None
         if params.icp_metric == "plane":
-            self._nrm_dev = estimate_normals(self._tgt_dev, k=params.normals_k)
+            self._nrm_dev = (
+                torch.as_tensor(normals, dtype=torch.float32, device=self.device)
+                if normals is not None
+                else estimate_normals(self._tgt_dev, k=params.normals_k)
+            )
         # certified-mode numerical slack deducted from lower bounds
         # (bnb/solver.py:285-291); 0 in reference-parity mode
         scale = float(
@@ -161,16 +203,22 @@ class GoIcpSolver:
             math.sqrt(8.0 * 1.2e-7) * scale if params.conservative else 0.0
         )
 
-    def _grid(self):
+    def _grid(self, grid=None):
         """The distance grid the backends need (``solver.py:201-231``): the
         bounds read it on "grid", the ICP reads its index field on the
-        "grid" ICP backend.  It is built at ``grid_resolution`` (phase
-        ``grid_build``); with neither backend on the grid there is none."""
+        "grid" ICP backend.  A caller's ``grid`` of at least
+        ``grid_resolution`` cells a side, with an index field where the ICP
+        needs one, is reused; otherwise one is built (phase
+        ``grid_build``).  With neither backend on the grid there is none:
+        the JAX package's vestigial 8³ grid has no reader here."""
         p = self.p
         need_bounds = self._backend == "grid"
         need_index = self._icp_backend == "grid"
         if not (need_bounds or need_index):
             return None
+        if (grid is not None and grid.n >= p.grid_resolution
+                and (grid.indices is not None or not need_index)):
+            return grid
         with self.metrics.phase("grid_build"):
             g = build_distance_grid(
                 self._tgt_dev, n=p.grid_resolution, expand=p.grid_expand,
@@ -241,10 +289,11 @@ class GoIcpSolver:
             return R_p, t_p, sse_p
         return best_R, best_t, best_sse
 
-    def score_full(self, R, t):
-        """(Trimmed) SSE of the FULL source cloud at one pose
-        (``solver.py:389``)."""
-        params = IcpParams(max_iter=0, rel_tol=0.0, trim_fraction=self.p.trim_fraction)
+    def score_full(self, R, t, trim_fraction: Optional[float] = None):
+        """(Trimmed) SSE of the FULL source cloud at one pose, at the solve's
+        trim fraction or ``trim_fraction`` (``solver.py:389``)."""
+        trim = self.p.trim_fraction if trim_fraction is None else trim_fraction
+        params = IcpParams(max_iter=0, rel_tol=0.0, trim_fraction=trim)
         res = self._icp(
             self._to(self.src_full),
             np.asarray(R, np.float32)[None], np.asarray(t, np.float32)[None], params,
@@ -347,11 +396,20 @@ def make_solver(
     params: BnbParams = BnbParams(),
     progress: Optional[ProgressBus] = None,
     device=None,
+    grid=None,
+    normals=None,
+    bound_idx=None,
 ) -> GoIcpSolver:
-    """The flat SE(3) engine on one device (``solver.py:810``, se3 only)."""
+    """Engine dispatch on one device (``solver.py:810``): the flat SE(3)
+    engine ("se3", the default) or the nested one ("nested")."""
+    kw = dict(device=device, grid=grid, normals=normals, bound_idx=bound_idx)
+    if params.engine == "nested":
+        from goicp_tpu_torch.bnb.nested import GoIcpSolverNested
+
+        return GoIcpSolverNested(src, tgt, params, progress, **kw)
     from goicp_tpu_torch.bnb.se3 import GoIcpSolverSE3
 
-    return GoIcpSolverSE3(src, tgt, params, progress, device=device)
+    return GoIcpSolverSE3(src, tgt, params, progress, **kw)
 
 
 def register(
@@ -360,6 +418,9 @@ def register(
     params: BnbParams = BnbParams(),
     progress: Optional[ProgressBus] = None,
     device=None,
+    grid=None,
+    normals=None,
 ) -> GoIcpResult:
     """One-call globally-optimal registration (``solver.py:848``)."""
-    return make_solver(src, tgt, params, progress, device=device).run()
+    return make_solver(src, tgt, params, progress, device=device, grid=grid,
+                       normals=normals).run()

@@ -21,10 +21,12 @@ Modes:
 - 3 ``GOICP_CPU`` / 4 ``GOICP_GPU``: the certified SE(3) branch-and-bound;
   mode 3 pins the axis-angle cube, mode 4 honours ``[tpu] rotation_param``.
 
-Options the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP item before any solving starts: ``[tpu] full_cert`` here,
-``--checkpoint``/``checkpoint_path``, ``engine = "nested"`` and device
-meshes (``mesh_cubes``/``mesh_points`` above 1) when the solver is built.
+``[tpu] full_cert`` certifies the whole source cloud by adaptive subset
+refinement (``register_full_cert``), ``--checkpoint``/``checkpoint_path``
+snapshots and resumes the BnB, and ``[tpu] engine = "nested"`` runs the
+nested engine.  Device meshes (``mesh_cubes``/``mesh_points`` above 1) on
+the SE(3) engine raise ``NotImplementedError`` naming their ROADMAP item
+when the solver is built.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from goicp_tpu_torch.bnb import BnbParams, GoIcpResult, make_solver
+from goicp_tpu_torch.bnb import BnbParams, GoIcpResult, make_solver, register_full_cert
 from goicp_tpu_torch.core.config import Config, Mode
 from goicp_tpu_torch.core.device import resolve_device
 from goicp_tpu_torch.core.logging import get_logger
@@ -94,17 +96,6 @@ def bnb_params_from_config(cfg: Config) -> BnbParams:
         normals_k=t.normals_k,
         max_wall_s=t.max_wall_s,
     )
-
-
-def _refuse_full_cert(cfg: Config):
-    """``[tpu] full_cert`` drives ``register_full_cert``, which this port
-    does not have yet.  (The solver itself refuses the nested engine,
-    meshes and checkpoints when it is built, before any solving.)"""
-    if cfg.mode in (Mode.GOICP_CPU, Mode.GOICP_GPU) and cfg.tpu.full_cert:
-        raise NotImplementedError(
-            "[tpu] full_cert is not ported yet (ROADMAP queue 1, item 7: "
-            "full-cloud certification)"
-        )
 
 
 def run_icp_mode(cfg: Config, src, tgt, bus: ProgressBus | None = None, device=None):
@@ -177,10 +168,16 @@ def run_icp_mode(cfg: Config, src, tgt, bus: ProgressBus | None = None, device=N
 
 
 def run_goicp_mode(cfg: Config, src, tgt, bus: ProgressBus, device=None):
-    """Modes 3/4: the certified SE(3) solve (``cli.py:160``)."""
-    res: GoIcpResult = make_solver(
-        src, tgt, bnb_params_from_config(cfg), progress=bus, device=device
-    ).run()
+    """Modes 3/4: the certified solve (``cli.py:160``); with ``[tpu]
+    full_cert`` its certificate covers the full source cloud."""
+    params = bnb_params_from_config(cfg)
+    if cfg.tpu.full_cert:
+        res: GoIcpResult = register_full_cert(
+            src, tgt, params, progress=bus, device=device,
+            target_gap_mse=cfg.tpu.full_cert_mse or None,
+        )
+    else:
+        res = make_solver(src, tgt, params, progress=bus, device=device).run()
     return {
         "R": np.asarray(res.transform.R),
         "t": np.asarray(res.transform.t),
@@ -218,7 +215,6 @@ def run_scenario(
     cfg = Config.from_toml(toml_path)
     if checkpoint:
         cfg.tpu.checkpoint_path = checkpoint
-    _refuse_full_cert(cfg)
     seed = cfg.tpu.seed
     src = load_cloud(cfg.resolve(cfg.io.source), cfg.subsample, cfg.resize, seed)
     tgt = load_cloud(cfg.resolve(cfg.io.target), cfg.subsample, cfg.resize, seed)
@@ -334,7 +330,8 @@ def main(argv=None) -> int:
         "--checkpoint",
         default=None,
         metavar="PATH",
-        help="BnB frontier snapshot file (not ported yet: raises)",
+        help="BnB frontier snapshot file: resumed from when it exists, written "
+             "every [tpu] checkpoint_every rounds",
     )
     ap.add_argument(
         "--device",

@@ -73,6 +73,45 @@ def _sq3(v):
     return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2]
 
 
+def fma(a, b, c):
+    """``a·b + c`` of f32 tensors rounded once to f32, as the fused
+    multiply-add that XLA's CPU build emits where it contracts a product
+    into a sum.  Exact on any device: the product is exact in f64, the sum
+    is rounded to odd in f64 (its TwoSum error picks the odd neighbour),
+    and rounding that to f32 is then the correctly rounded result."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, _INF), e)
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def sqrt_rn(x):
+    """Square root of f32 ``x`` correctly rounded to f32 on any device, as
+    XLA's and CUDA's ``sqrtf`` round it; ATen's vectorized CPU ``sqrt`` of
+    f32 is not (some values come out one ulp off).  The f64 root
+    of an f32 value rounds to the correctly rounded f32 root (53 ≥ 2·24 + 2
+    bits)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _sq3_fma(v):
+    """``sum(v*v, -1)`` over 3 columns as XLA's jitted CPU reduce adds it:
+    ``fma(z, z, fma(y, y, x·x))``."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return fma(z, z, fma(y, y, x * x))
+
+
+def _dot3_fma(a, b):
+    """``a · b`` over a last axis of 3 as XLA's CPU dot adds it (K = 3):
+    ``fma(a₂, b₂, fma(a₁, b₁, a₀·b₀))``; ``a`` and ``b`` broadcast."""
+    return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
 # ---------------------------------------------------------------------------
 # packing (bit-identical to goicp_tpu.nn.mxu.pack_*)
 # ---------------------------------------------------------------------------
@@ -410,7 +449,7 @@ def _point_terms(d2, slack, af, pn, gt):
     """Yang et al. eq. 10 per point from squared distances: ``d_hi = d +
     slack`` and ``c = max(max(d − slack, 0) − (af·|p| + γt), 0)`` (the ub
     term is ``d_hi²``, the lb term ``c²``), in the kernels' order."""
-    d = torch.sqrt(torch.clamp(d2, min=0.0))
+    d = sqrt_rn(torch.clamp(d2, min=0.0))
     d_hi = d + slack
     d_lo = torch.clamp(d - slack, min=0.0)
     return d_hi, torch.clamp(d_lo - (af * pn + gt), min=0.0)
@@ -451,12 +490,14 @@ def screen_scan(ub_blk, lb_blk, thresh, group: bool = False):
 def ordered_row_sum(x):
     """Row sums ``[..., n] → [...]`` in the order in which XLA's CPU backend
     adds a row: windows of 32 in sequence (again over the window sums while
-    more than 32 remain), then the last ≤ 32 sums in sequence.  Only
+    more than 32 remain), then the last ≤ 32 sums in sequence.  A row whose
+    length is not a multiple of 32 is padded with zeros on both sides, the
+    smaller half in front, as XLA's reduce-window pads it.  Only
     element-wise adds, so the card and the CPU agree bit for bit."""
     while x.shape[-1] > 32:
         pad = (-x.shape[-1]) % 32
         if pad:
-            x = torch.nn.functional.pad(x, (0, pad))
+            x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
         x = x.reshape(*x.shape[:-1], -1, 32)
         acc = x[..., 0]
         for k in range(1, 32):

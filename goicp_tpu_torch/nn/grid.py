@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from goicp_tpu_torch.core.device import resolve_device
-from goicp_tpu_torch.nn.fused import _sq3
+from goicp_tpu_torch.nn.fused import _sq3, fma, sqrt_rn
 
 # elements of one min-plus candidate block: 512 MB in f64 (and 256 MB once
 # rounded), so a 256³ build stays beside the solve's buffers
@@ -200,7 +200,7 @@ def _clamped_cell_coords(grid: DistanceGrid, queries):
     n = grid.n
     x = (queries - grid.origin) / grid.cell - 0.5
     xc = torch.clamp(x, 0.0, n - 1.0)
-    esc = torch.sqrt(_sq3((x - xc) * grid.cell))
+    esc = sqrt_rn(_sq3((x - xc) * grid.cell))
     return xc, esc
 
 
@@ -239,13 +239,18 @@ def lookup_sq_trilinear(grid: DistanceGrid, queries):
     c101 = at(i1[..., 0], i0[..., 1], i1[..., 2])
     c011 = at(i0[..., 0], i1[..., 1], i1[..., 2])
     c111 = at(i1[..., 0], i1[..., 1], i1[..., 2])
-    c00 = c000 * (1 - fx) + c100 * fx
-    c10 = c010 * (1 - fx) + c110 * fx
-    c01 = c001 * (1 - fx) + c101 * fx
-    c11 = c011 * (1 - fx) + c111 * fx
-    c0 = c00 * (1 - fy) + c10 * fy
-    c1 = c01 * (1 - fy) + c11 * fy
-    return c0 * (1 - fz) + c1 * fz, esc
+    # XLA's CPU build contracts each blend a·(1−f) + b·f into one fused
+    # multiply-add: along x it keeps a·(1−f) rounded and fuses b·f, along y
+    # and z the reverse; the same single roundings keep the lookup equal
+    # to the jitted JAX function's bit for bit
+    gx, gy, gz = 1 - fx, 1 - fy, 1 - fz
+    c00 = fma(c100, fx, c000 * gx)
+    c10 = fma(c110, fx, c010 * gx)
+    c01 = fma(c101, fx, c001 * gx)
+    c11 = fma(c111, fx, c011 * gx)
+    c0 = fma(c00, gy, c10 * fy)
+    c1 = fma(c01, gy, c11 * fy)
+    return fma(c0, gz, c1 * fz), esc
 
 
 def lookup_index(grid: DistanceGrid, queries):
@@ -269,5 +274,5 @@ def distance_bounds(grid: DistanceGrid, queries, lookup: str = "trilinear"):
     else:
         raise ValueError(f"unknown lookup {lookup!r}")
     slack = float(lat + grid.raster_err)
-    d = torch.sqrt(torch.clamp(val, min=0.0))
+    d = sqrt_rn(torch.clamp(val, min=0.0))
     return torch.clamp(d - esc - slack, min=0.0), d + esc + slack

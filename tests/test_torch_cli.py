@@ -148,18 +148,35 @@ def test_main_on_the_cpu_with_a_profile(scene, capsys):
 
 
 @pytest.mark.parametrize("extra,arg", [
-    ("full_cert = true", None),
+    ("full_cert = true\nfull_cert_mse = 1e-3", None),
     ('engine = "nested"', None),
     ("mesh_cubes = 2", None),
-    ('checkpoint_path = "ck.npz"', None),
-    ("", "ck.npz"),
+    ('checkpoint_path = "{ck}"', None),
+    ("", "{ck}"),
 ], ids=["full_cert", "nested", "mesh", "checkpoint_path", "--checkpoint"])
 def test_unported_options_refused_before_solving(scene, extra, arg, monkeypatch):
-    """``full_cert`` is refused by the CLI, the others when the solver is
-    built; none reaches a solve."""
+    """Device meshes on the SE(3) engine are refused when the solver is
+    built, before any solving.  ``full_cert``, the nested engine and the
+    checkpoint (from the TOML or ``--checkpoint``) are in the port now:
+    those scenarios solve on the CPU path, and the checkpoint is written.
+    (The full-cloud target is 10× the threshold, so the whole-cloud solve
+    keeps its threshold: at the default target it would halve it.)"""
     from goicp_tpu_torch.bnb import se3
 
     d, cfg, _, _ = scene
+    ck = str(d / f"ck_{abs(hash(extra + str(arg)))}.npz")
+    extra, arg = extra.replace("{ck}", ck), arg and arg.replace("{ck}", ck)
+    if "mesh" not in extra:
+        out = cli.run_scenario(cfg(4, extra + "\ncheckpoint_every = 1"), str(d / "in_slice"),
+                               checkpoint=arg, device="cpu")
+        assert np.isfinite(out["sse"]) and out["converged"]
+        if "full_cert" in extra:
+            assert out["gap_full"] is not None and out["sse_full"] == out["sse"]
+        if "nested" in extra:
+            assert out["metrics"]["count/rot_nodes"] == out["rot_nodes"]
+        if "checkpoint" in extra or arg:
+            assert os.path.exists(ck) or out["rot_nodes"] == 0
+        return
 
     def no_solve(*a, **k):
         raise AssertionError("a refused option reached the solve")

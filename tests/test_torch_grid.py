@@ -18,6 +18,7 @@ import pytest
 
 pytest.importorskip("jax")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
@@ -98,8 +99,11 @@ def grids():
 
 @pytest.mark.parametrize("fn", ["lookup_sq_nearest", "lookup_sq_trilinear"])
 def test_lookups_match_jax(grids, fn):
+    """Against the jitted lookups, as every solve runs them (XLA contracts
+    the trilinear blend into fused multiply-adds, which the port rounds the
+    same way)."""
     J, T, q = grids
-    vj, ej = getattr(jgrid, fn)(J, jnp.asarray(q))
+    vj, ej = jax.jit(getattr(jgrid, fn))(J, jnp.asarray(q))
     vt, et = getattr(tgrid, fn)(T, torch.from_numpy(q))
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     np.testing.assert_allclose(et.numpy(), np.asarray(ej), rtol=1e-6, atol=1e-7)
@@ -117,6 +121,93 @@ def test_lookup_index_and_distance_bounds_match_jax(grids):
         np.testing.assert_allclose(hi_t.numpy(), np.asarray(hi_j), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="with_index"):
         tgrid.lookup_index(dataclasses.replace(T, indices=None), torch.from_numpy(q))
+
+
+def _old_exact_min_d2(pts, tiles, norms):
+    """The expansion as the port computed it before it rounded like XLA:
+    one f32 matmul per tile and plainly summed norms."""
+    pn = (pts * pts).sum(-1)
+    best = torch.full_like(pn, float("inf"))
+    for t_tile, tn in zip(tiles, norms):
+        best = torch.minimum(best, (tn[None, :] - 2.0 * (pts @ t_tile.T)).amin(-1))
+    return torch.clamp(best + pn, min=0.0)
+
+
+def _old_trilinear_blend(c, f):
+    """The blend ``a·(1−f) + b·f`` with every product and sum rounded."""
+    (c000, c100, c010, c110, c001, c101, c011, c111), (fx, fy, fz) = c, f
+    c00, c10 = c000 * (1 - fx) + c100 * fx, c010 * (1 - fx) + c110 * fx
+    c01, c11 = c001 * (1 - fx) + c101 * fx, c011 * (1 - fx) + c111 * fx
+    c0, c1 = c00 * (1 - fy) + c10 * fy, c01 * (1 - fy) + c11 * fy
+    return c0 * (1 - fz) + c1 * fz
+
+
+def test_exact_expansion_and_trilinear_blend_round_as_jitted_jax(grids):
+    """Term by term against the jitted JAX functions: every per-point d² of
+    the exact expansion (``device_inner._exact_min_d2``) and every
+    trilinear lookup is bit-equal, where the plain f32 forms the port used
+    before differ in the last bits of many terms."""
+    from goicp_tpu.bnb.device_inner import _exact_min_d2 as jexact
+    from goicp_tpu_torch.bnb.se3_eval import _exact_min_d2, _target_tiles
+
+    rng = np.random.default_rng(0)
+    pts = rng.normal(0.0, 0.3, (3000, 3)).astype(np.float32)
+    tgt = rng.normal(0.0, 0.3, (600, 3)).astype(np.float32)
+    tiles, norms = _target_tiles(torch.from_numpy(tgt), 256)
+    jt = jnp.asarray(tiles.numpy())
+    jn = jax.jit(lambda a: jnp.sum(a * a, axis=-1))(jt)
+    np.testing.assert_array_equal(norms.numpy(), np.asarray(jn))
+    want = np.asarray(jax.jit(jexact)(jnp.asarray(pts), jt, jn))
+    got = _exact_min_d2(torch.from_numpy(pts), tiles, norms).numpy()
+    old = _old_exact_min_d2(torch.from_numpy(pts), tiles, (tiles * tiles).sum(-1)).numpy()
+    assert (old != want).sum() > 100
+    np.testing.assert_array_equal(got, want)
+    # the rotation of the points (K = 3): the matmul of the SE(3) bounds and
+    # of the nested engine rounds as the fused chain that XLA's dot runs
+    from goicp_tpu_torch.nn.fused import _dot3_fma
+
+    R = torch.from_numpy(random_rotations(200, rng))
+    s = torch.from_numpy(pts[:128])
+    chain = _dot3_fma(R[:, None], s[None, :, None])
+    np.testing.assert_array_equal((s[None] @ R.transpose(-1, -2)).numpy(), chain.numpy())
+    np.testing.assert_array_equal(
+        chain.numpy(), np.asarray(jax.jit(lambda r, p: jnp.einsum(
+            "mij,tj->mti", r, p, precision=jax.lax.Precision.HIGHEST))(R.numpy(), pts[:128])))
+
+    J, T, q = grids
+    vj = np.asarray(jax.jit(jgrid.lookup_sq_trilinear)(J, jnp.asarray(q))[0])
+    vt = tgrid.lookup_sq_trilinear(T, torch.from_numpy(q))[0].numpy()
+    np.testing.assert_array_equal(vt, vj)
+    # the plain blend of the same corners and fractions
+    n = T.n
+    x = (torch.from_numpy(q) - T.origin) / T.cell - 0.5
+    xc = torch.clamp(x, 0.0, n - 1.0)
+    f = xc - torch.floor(xc)
+    i0 = torch.clamp(torch.floor(xc).to(torch.int64), 0, n - 1)
+    i1 = torch.clamp(i0 + 1, 0, n - 1)
+    corners = [torch.take(T.values, ((a[:, 0] * n + b[:, 1]) * n + c[:, 2]))
+               for c in (i0, i1) for b in (i0, i1) for a in (i0, i1)]
+    old = _old_trilinear_blend(corners, (f[:, 0], f[:, 1], f[:, 2])).numpy()
+    assert (old != vj).sum() > 10
+
+
+def test_roots_and_norms_round_as_jitted_jax():
+    """Term by term: ATen's vectorized CPU ``sqrt`` of f32 is off by one ulp
+    for some values, where XLA's is correctly rounded; ``fused.sqrt_rn``
+    equals the jitted ``jnp.sqrt`` on every value, and the source norms
+    equal the jitted ``jnp.linalg.norm``."""
+    from goicp_tpu_torch.bnb.bounds import BoundsEvaluator
+    from goicp_tpu_torch.nn.fused import sqrt_rn
+
+    rng = np.random.default_rng(5)
+    x = rng.uniform(0.0, 0.3, 100_000).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.sqrt)(jnp.asarray(x)))
+    assert (torch.sqrt(torch.from_numpy(x)).numpy() != want).sum() > 100
+    np.testing.assert_array_equal(sqrt_rn(torch.from_numpy(x)).numpy(), want)
+    src = rng.uniform(-0.5, 0.5, (20_000, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        BoundsEvaluator(torch.from_numpy(src)).norms.numpy(),
+        np.asarray(jax.jit(lambda a: jnp.linalg.norm(a, axis=-1))(jnp.asarray(src))))
 
 
 @pytest.mark.parametrize("trim", [0.0, 0.2, 0.7])
@@ -168,12 +259,10 @@ def test_evaluate_se3_nodes_matches_jax(backend, trim, lookup):
         *(torch.from_numpy(x) for x in (src, norms)), T, torch.from_numpy(tgt), float(slack),
         *(torch.from_numpy(x) for x in (R, ang, t_c, t_span, mask)), h=h, lookup=lookup,
         backend=backend, tile=128, tgt_tile=256)
-    np.testing.assert_array_equal(np.isinf(ub_t.numpy()), np.isinf(np.asarray(ub_j)))
-    np.testing.assert_allclose(ub_t.numpy(), np.asarray(ub_j), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(lb_t.numpy(), np.asarray(lb_j), rtol=1e-5, atol=1e-5)
-    if (backend, lookup) == ("grid", "nearest"):
-        # the sums add in XLA's CPU order: no sin in ub, so it is bit-equal
-        np.testing.assert_array_equal(ub_t.numpy(), np.asarray(ub_j))
+    # the sums add in XLA's CPU order and the roots round correctly, as
+    # XLA's do: every bound is bit-equal
+    np.testing.assert_array_equal(ub_t.numpy(), np.asarray(ub_j))
+    np.testing.assert_array_equal(lb_t.numpy(), np.asarray(lb_j))
     assert (lb_t.numpy()[:-2] > 0).any() and (lb_t.numpy()[:-2] < ub_t.numpy()[:-2]).all()
 
 
@@ -213,10 +302,8 @@ def test_whole_solve_parity_with_jax(clouds, kw):
 def test_trimmed_nearest_grid_solve_close_to_jax(clouds):
     """Trimmed grid bounds on the nearest lookup: the sums add in the JAX
     package's jitted CPU order and round ``S + rem·τ`` once, so the per-node
-    bounds agree bit for bit but for the rare node whose ``sin`` differs in
-    its last bit (glibc's ``sinf`` against PyTorch's), and this solve
-    evaluates the same nodes.  Rounds, nodes, converged and ICP iterations
-    equal, sse rtol 1e-5."""
+    bounds agree bit for bit and this solve evaluates the same nodes.
+    Rounds, nodes, converged and ICP iterations equal, sse rtol 1e-5."""
     src, tgt = clouds
     jp = JBnbParams(**PARITY, bound_backend="grid", icp_exact_max=50, trim_fraction=0.1)
     rj = jregister(src, tgt, jp)

@@ -113,7 +113,8 @@ for name in names:
     __import__(name)
 assert {"goicp_tpu_torch.cli", "goicp_tpu_torch.viz", "goicp_tpu_torch.nn.grid",
         "goicp_tpu_torch.geo.normals", "goicp_tpu_torch.core.config",
-        "goicp_tpu_torch.io.writer"} <= set(names), names
+        "goicp_tpu_torch.io.writer", "goicp_tpu_torch.bnb.fullcert",
+        "goicp_tpu_torch.bnb.nested", "goicp_tpu_torch.bnb.device_inner"} <= set(names), names
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "goicp_tpu"))
 assert not [m for m in leaked if sys.modules[m] is not None], leaked
 print("imported", len(names))
@@ -123,7 +124,8 @@ runpy.run_module("goicp_tpu_torch", run_name="__main__")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port (the CLI and viz included) imports in a
+    """Every module of the port (the CLI, viz, full-cloud certification and
+    the nested engine included) imports in a
     process where ``jax`` and ``goicp_tpu`` cannot be imported, and
     ``python -m goicp_tpu_torch --help`` runs there."""
     import subprocess

@@ -101,6 +101,47 @@ def test_k1_routes(cuda, route, case):
         assert torch.equal(idx[:100].long(), torch.arange(7000, 7100, device=cuda))
 
 
+@pytest.mark.parametrize("n_sub", [8192, 32768])
+def test_k1_coverage_shape(cuda, n_sub):
+    """The full-cloud certificate's coverage order: 40,256 queries against a
+    subset of themselves (on the ring route above 6,144 targets), with
+    duplicated points, so every subset member and its twins tie at d² = 0
+    and the earliest subset index must win."""
+    rng = np.random.default_rng(9)
+    full = rng.uniform(-0.5, 0.5, (40256, 3)).astype(np.float32)
+    full[20000:22000] = full[:2000]
+    idx = np.sort(rng.choice(40256, n_sub, replace=False))
+    q = torch.as_tensor(full, device=cuda)
+    t = q[torch.as_tensor(idx, device=cuda)]
+    d2, nn = fused.nearest_neighbor_mxu(q, t)
+    _k1_agrees(q, t, d2, nn)
+    hits = torch.as_tensor(idx, device=cuda)
+    assert bool((d2[hits] == 0).all())
+
+
+def test_k5_limit_refuses_a_trimmed_screen_full_cert(cuda, monkeypatch):
+    """K5 keeps a node's [2, Np] terms in shared memory and refuses a source
+    above ~29,000 points; a trimmed full cert on ``bound_backend="screen"``
+    that would grow its subset past that raises before the first solve."""
+    from goicp_tpu_torch.bnb import BnbParams, fullcert
+
+    with pytest.raises(RuntimeError):
+        fused.k5_plan(1, 40320, 1920)
+    assert fused.k5_plan(1, 16384, 1920)["smem"] > 0
+
+    def no_solve(*a, **k):
+        raise AssertionError("reached a solve")
+
+    monkeypatch.setattr(fullcert, "make_solver", no_solve)
+    rng = np.random.default_rng(1)
+    src = rng.uniform(-0.5, 0.5, (40256, 3)).astype(np.float32)
+    p = BnbParams(trim_fraction=0.25, bound_backend="screen")
+    with pytest.raises(ValueError, match="shared-memory"):
+        fullcert.register_full_cert(src, src[:1797], p, max_refinements=3)
+    with pytest.raises(AssertionError, match="reached a solve"):    # within the limit
+        fullcert.register_full_cert(src, src[:1797], p, max_refinements=0)
+
+
 def _nodes(rng, B, dev):
     R = axis_angle_rotation(torch.as_tensor(
         rng.uniform(-np.pi, np.pi, (B, 3)).astype(np.float32), device=dev))
@@ -108,7 +149,10 @@ def _nodes(rng, B, dev):
     return R, t
 
 
-@pytest.mark.parametrize("G,n,nt", [(5, 300, 700), (263, 1518, 1797)])
+# T-round shapes; the full-cloud certificate's grown subsets (16,384 and the
+# whole 40,256-point bunny), with few groups so the plain version stays quick
+@pytest.mark.parametrize("G,n,nt", [(5, 300, 700), (263, 1518, 1797), (5, 16384, 1797),
+                                    (5, 40256, 1797)])
 def test_k3_min_d2_groups(cuda, G, n, nt):
     rng = np.random.default_rng(2)
     src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
@@ -122,7 +166,8 @@ def test_k3_min_d2_groups(cuda, G, n, nt):
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (2048, 1518, 1797)])
+@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (2048, 1518, 1797), (16, 16384, 1797),
+                                    (16, 40256, 1797)])
 @pytest.mark.parametrize("screen", [False, True])
 def test_k2_bounds_nodes(cuda, B, n, nt, screen):
     rng = np.random.default_rng(3)
@@ -153,8 +198,10 @@ def _agree_screened(ub, lb, ub_p, lb_p, thresh, scale, group=1, screen=False):
 
 
 # B·Np not a multiple of a CTA's 1,024 queries; the R-round bucket; a
-# target set above the resident limit (the ring of target tiles)
-@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (21080, 1518, 1797), (16, 1518, 20000)])
+# target set above the resident limit (the ring of target tiles); the
+# full-cloud certificate's grown subsets
+@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (21080, 1518, 1797), (16, 1518, 20000),
+                                    (16, 16384, 1797), (16, 40256, 1797)])
 def test_k4_min_d2_nodes(cuda, B, n, nt):
     rng = np.random.default_rng(4)
     src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
