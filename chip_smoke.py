@@ -11,7 +11,9 @@ Phases, each of which fails the run:
 2. building the CUDA kernels from ``goicp_tpu_torch/csrc`` (timed);
 3. each kernel against its plain PyTorch version on the card, on random
    inputs and at the bunny solves' shapes, with kernel, plain, bound and
-   (K1, K3, K4) library times: K1 nearest neighbour at each of its shapes
+   (K1, K3, K4) library times; K2 also against its plain version in the
+   kernel's summation order (bit-equal), with its launch plan, screened and
+   unscreened times and on its ring route (8,000 targets): K1 nearest neighbour at each of its shapes
    on the solve's path (in-round refine, coarse and full multistart) and at
    the CLI's modes 0/1 on the whole bunny (40,256 × 40,256, its ring route;
    device time per call, and on a doubled target cloud whose ties the
@@ -25,8 +27,9 @@ Phases, each of which fails the run:
    K2, K3 must launch), with the pose error against the ground truth;
 4b. a trimmed (trim 0.25) certified solve of a partial-overlap bunny pair
    (the target lacks the 20 % of points of largest x): K1, K4, K3 must
-   launch, and the pose must be within the same limits; then the same solve
-   with ``bound_backend="screen"`` on a 30 s budget: K1, K5, K6 must
+   launch, and the pose must be within the same limits (60 s budget: it
+   does not converge; rounds, nodes/s and gap are reported); then the same
+   solve with ``bound_backend="screen"`` on a 30 s budget: K1, K5, K6 must
    launch;
 5. the same small solve on the card and on the CPU path, which must agree;
 5b. three small solves of 300-point subsets of the partial-overlap pair on
@@ -59,10 +62,12 @@ Phases, each of which fails the run:
    32,768 → 40,256 on 20 s budgets (K1, K2, K3 must launch; the pose within
    the limits; ``gap_full`` reported, ``sse_full`` equal to the CPU path's
    score; the first grown subset equal on the card and the CPU path), with
-   K1 at its coverage shape (40,256 queries x 32,768 of them), and K2 and
-   K3 at the whole source's shape (792 nodes, 99 groups of 8) against
-   their plain versions (K2 and K3 rows of their own in the ``kernels``
-   line, with 8a's launches); 8b the headline solve interrupted at 200
+   K1 at its coverage shape (40,256 queries x 32,768 of them), and K2, K3
+   and K5 at the whole source's shape (792 nodes, 99 groups of 8) against
+   their plain versions (rows of their own in the ``kernels`` line, with
+   8a's launches at that shape); then a trimmed full cert (trim 0.25) on
+   ``bound_backend="screen"``, 5 s a solve, subsets 20,128 → 40,256, whose
+   K5 must run at the whole source; 8b the headline solve interrupted at 200
    rounds (snapshots every 25) and resumed to certification, at phase 4's
    pose, from the snapshot written at round 200 while rounds were queued
    and from the last one, written after the queue drained; 8c the headline pair on the nested engine, 30 s
@@ -102,6 +107,7 @@ N_SRC, N_TGT = 1518, 1797       # the headline's subsample sizes
 SOLVE_WALL_S = 150.0            # BnB budget: keeps the run inside its limit
 MSE_FACTOR = 0.5                # mse_threshold = MSE_FACTOR · mse at the true pose
 TRIM = 0.25                     # trim_fraction of the partial-overlap solves
+TRIM_WALL_S = 60.0              # BnB budget of the trimmed solve (4b), which does not converge
 SCREEN_WALL_S = 30.0            # BnB budget of the trimmed solve on the screen backend
 PROFILE_TRIM_WALL_S = 30.0      # BnB budget of the traced trimmed solve (--profile)
 K1_RESIDENT_MAX = 6144          # csrc/nn_min_d2.cu kResidentMax: K1's targets in shared memory
@@ -360,9 +366,16 @@ def node_batch(rng, B, dev):
     return Rb, tb, af, gt
 
 
+K2_RESIDENT_MAX = 6144          # csrc/bounds.cu kBdResidentMax: K2's targets in shared memory
+
+
 def check_k2(chk, dev, S, T, rng, clock_hz, B, tag=""):
     """K2 at the largest R-round bucket (8·se3_pop nodes; ``tag`` names
-    another path's shape in the row and the messages)."""
+    another path's shape in the row and the messages), screened at the
+    median lb and unscreened: within tolerance of the plain version and
+    bit-equal to its kernel-order twin, with the launch plan, both times,
+    both bounds and their ratio; then the ring route (targets above the
+    6,144 that stay resident) at a few nodes."""
     import torch
 
     from goicp_tpu_torch.nn import fused
@@ -377,6 +390,7 @@ def check_k2(chk, dev, S, T, rng, clock_hz, B, tag=""):
     thresh = float(lb_open.median())
     p_scr = fused.pack_params_bounds(Rb, tb, af, gt, 0.0, thresh)
     tq = fused._pick_tile(srcX.shape[1], fused.TQB)
+    plan = fused.k2_plan(B, srcX.shape[1], wm.shape[0])
     k2 = {}
     for label, params, th in (("unscreened", p_open, 1e30), ("screened", p_scr, thresh)):
         worst = 0.0
@@ -395,6 +409,10 @@ def check_k2(chk, dev, S, T, rng, clock_hz, B, tag=""):
             worst = max(worst, err)
             chk.expect(ok, f"K2{tag} {label} {name}: max |err| {err:.3g} (tol 1e-5 + 1e-5·|ref|), "
                            f"screened-set differences {differ} (all within tol of thresh)")
+            ub_o, lb_o = fused.bounds_nodes_kernel_order(*args)
+            chk.expect(bool(torch.equal(ub, ub_o) and torch.equal(lb, lb_o)),
+                       f"K2{tag} {label} {name}: bit-equal to the plain version in the "
+                       "kernel's summation order")
         ms = timed_ms(lambda: fused.bounds_nodes(srcX, wm, params), 10)
         plain = timed_ms(lambda: fused.bounds_nodes_plain(srcX, wm, params), 2)
         ub_blk, lb_blk = fused.bounds_block_sums_plain(srcX, wm, params)
@@ -403,18 +421,38 @@ def check_k2(chk, dev, S, T, rng, clock_hz, B, tag=""):
         b, by = bound_ms(4.0 * (16 * B + 5 * N + 3 * NT + 2 * B), 7.0 * pts * NT, clock_hz)
         k2[label] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=worst,
                          blocks_run=int(blocks.sum().item()), blocks_total=B * (srcX.shape[1] // tq))
-    s = k2["screened"]
+    s, u = k2["screened"], k2["unscreened"]
+    # the ring route: targets above the resident limit, the kernel-order
+    # twin and the plain version on the same inputs
+    NTg = 8000
+    wm_g = fused.pack_targets(torch.rand(NTg, 3, device=dev) * 2.0 - 1.0)
+    p_g = p_scr[:64].contiguous()
+    plan_g = fused.k2_plan(64, srcX.shape[1], wm_g.shape[0])
+    ub, lb = fused.bounds_nodes(srcX, wm_g, p_g)
+    torch.cuda.synchronize()
+    ub_o, lb_o = fused.bounds_nodes_kernel_order(srcX, wm_g, p_g)
+    ok, err, _, _ = screened_agree(ub, lb, *fused.bounds_nodes_plain(srcX, wm_g, p_g), thresh, thresh)
+    chk.expect(not plan_g["targets_resident"] and wm_g.shape[0] > K2_RESIDENT_MAX and ok
+               and bool(torch.equal(ub, ub_o) and torch.equal(lb, lb_o)),
+               f"K2{tag} ring route 64 nodes {N}x{NTg}: max |err| {err:.3g}, bit-equal to the "
+               f"kernel-order version, plan {plan_g}")
+    ring = dict(ms=timed_ms(lambda: fused.bounds_nodes(srcX, wm_g, p_g), 5), max_abs_err=err,
+                plan=plan_g, shape=f"64 nodes x {N} points x {NTg} targets, thresh as above")
     rec = _rec(f"K2 bounds_nodes (screened fused bounds){tag}", "goicp_tpu_torch/csrc/bounds.cu",
                "goicp_tpu/nn/mxu.py:479",
-               max(s["max_abs_err"], k2["unscreened"]["max_abs_err"]), s["ms"], s["plain_ms"],
+               max(s["max_abs_err"], u["max_abs_err"]), s["ms"], s["plain_ms"],
                s["bound_ms"], s["bound_by"], None,
                f"{B} nodes x {N} points x {NT} targets, thresh = median lb "
                f"({s['blocks_run']} of {s['blocks_total']} blocks run)",
                library_none="no PyTorch call computes a screened, deflated sum",
-               unscreened=k2["unscreened"])
+               unscreened=u, screened_over_unscreened=s["ms"] / u["ms"],
+               bound_share=s["bound_ms"] / s["ms"], launch_plan=plan, ring_route=ring)
+    print(f"K2{tag} plan: {json.dumps(plan)}; screened {s['ms']:.4g} ms / unscreened "
+          f"{u['ms']:.4g} ms = {s['ms'] / u['ms']:.3f}; bounds {s['bound_ms']:.4g} / "
+          f"{u['bound_ms']:.4g} ms; ring route {ring['ms']:.4g} ms", flush=True)
     report(f"K2{tag} screened", rec)
-    report(f"K2{tag} unscreened", dict(k2["unscreened"], library_ms=None,
-                                 shape=f"{B} nodes x {N} points x {NT} targets"))
+    report(f"K2{tag} unscreened", dict(u, library_ms=None,
+                                       shape=f"{B} nodes x {N} points x {NT} targets"))
     return rec
 
 
@@ -476,8 +514,9 @@ def bisect_ops(rows: int, Np: int) -> float:
     return 2.0 * 25 * rows * Np
 
 
-def check_k5(chk, dev, S, T, rng, clock_hz, B, h):
-    """K5 at the largest R-round bucket with the trimmed protocol's h."""
+def check_k5(chk, dev, S, T, rng, clock_hz, B, h, tag=""):
+    """K5 at the largest R-round bucket with the trimmed protocol's h
+    (``tag`` names another path's shape, the full cert's whole source)."""
     import torch
 
     from goicp_tpu_torch.nn import fused
@@ -511,7 +550,7 @@ def check_k5(chk, dev, S, T, rng, clock_hz, B, h):
             ub_p, lb_p = fused.bounds_nodes_trimmed_plain(*args, h=hh, drop=dd)
             ok, err, nscr, differ = screened_agree(ub, lb, ub_p, lb_p, th, sc)
             worst = max(worst, err)
-            chk.expect(ok, f"K5 {label} {name}: max |err| {err:.3g} (tol 1e-5 + 1e-5·|ref|), "
+            chk.expect(ok, f"K5{tag} {label} {name}: max |err| {err:.3g} (tol 1e-5 + 1e-5·|ref|), "
                            f"{nscr} screened, screened-set differences {differ} (all within tol)")
         ms = timed_ms(lambda: fused.bounds_nodes_trimmed(srcX, wm, params, h=h, drop=drop), 10)
         plain = timed_ms(lambda: fused.bounds_nodes_trimmed_plain(srcX, wm, params, h=h, drop=drop), 2)
@@ -531,21 +570,22 @@ def check_k5(chk, dev, S, T, rng, clock_hz, B, h):
     torch.cuda.synchronize()
     ok, err, _, _ = screened_agree(ub, lb, *fused.bounds_nodes_trimmed_plain(srcX, wm_g, p_g, h=h, drop=drop),
                                    1e30, 1e30)
-    chk.expect(ok, f"K5 global-target route 64 nodes {N}x20000: max |err| {err:.3g} "
+    chk.expect(ok, f"K5{tag} global-target route 64 nodes {N}x20000: max |err| {err:.3g} "
                    "(tol 1e-5 + 1e-5·|ref|)")
+    plan = fused.k5_plan(B, Np, wm.shape[0])
     s = out["screened"]
-    rec = _rec("K5 bounds_nodes_trimmed (screened trimmed bounds)",
+    rec = _rec(f"K5 bounds_nodes_trimmed (screened trimmed bounds){tag}",
                "goicp_tpu_torch/csrc/bounds_trimmed.cu", "goicp_tpu/nn/mxu.py:738",
                max(s["max_abs_err"], out["unscreened"]["max_abs_err"]), s["ms"], s["plain_ms"],
                s["bound_ms"], s["bound_by"], None,
                f"{B} nodes x {N} points x {NT} targets, h {h}, thresh = half the median positive "
                f"lb ({s['blocks_run']} of {s['blocks_total']} blocks run, {s['survivors']} survivors)",
                library_none="no PyTorch call computes a screened, trimmed sum",
-               unscreened=out["unscreened"], launch_plan=fused.k5_plan(B, Np, wm.shape[0]),
+               unscreened=out["unscreened"], launch_plan=plan,
                global_target_route=dict(max_abs_err=err, plan=fused.k5_plan(64, Np, wm_g.shape[0])))
-    report("K5 screened", rec)
-    report("K5 unscreened", dict(out["unscreened"], library_ms=None,
-                                 shape=f"{B} nodes x {N} points x {NT} targets"))
+    report(f"K5{tag} screened", rec)
+    report(f"K5{tag} unscreened", dict(out["unscreened"], library_ms=None,
+                                       shape=f"{B} nodes x {N} points x {NT} targets"))
     return rec
 
 
@@ -668,6 +708,49 @@ def check_k7(chk, dev, S, T, rng, clock_hz, G):
     report("K7 unscreened", dict(out["unscreened"], library_ms=None,
                                  shape=f"{G} groups x 8 x {N} points x {NT} targets"))
     return rec
+
+
+def check_rotation_bound(chk, dev):
+    """The center-aware rotation bound on the card against the port's CPU
+    path (which ``tests/test_torch_rotation.py`` holds bit-equal to the
+    jitted JAX function) on 100,000 random cubes: the same bits; and its
+    time at the largest R-round's 21,080 cubes, replayed from its CUDA graph
+    as the rounds call it and eagerly (device ms, and the host's wall of one
+    call waited for)."""
+    import torch
+
+    from goicp_tpu_torch.geo import rotation
+
+    rng = np.random.default_rng(22)
+    c = rng.uniform(-np.pi, np.pi, (300_000, 3)).astype(np.float32)
+    c = c[np.linalg.norm(c, axis=1) <= np.pi][:100_000]
+    s = (np.pi / 2.0 ** rng.integers(1, 11, c.shape[0])).astype(np.float32)
+    ref = rotation.axis_angle_cube_max_angle(torch.from_numpy(c), torch.from_numpy(s)).numpy()
+    got = rotation.axis_angle_cube_max_angle(torch.as_tensor(c, device=dev),
+                                             torch.as_tensor(s, device=dev)).cpu().numpy()
+    differ = int((got.view(np.int32) != ref.view(np.int32)).sum())
+    chk.expect(differ == 0, f"rotation bound: card vs CPU path on {c.shape[0]} cubes, "
+                            f"{differ} differ in their bits (0 expected)")
+    cd, sd = torch.as_tensor(c[:21080], device=dev), torch.as_tensor(s[:21080], device=dev)
+
+    def host_ms(fn, reps=30):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    graphed = lambda: rotation.axis_angle_cube_max_angle(cd, sd)  # noqa: E731
+    eager = lambda: rotation._cube_max_angle(cd, sd, 40, 12)  # noqa: E731
+    out = dict(cubes=int(c.shape[0]), bits_differ=differ,
+               graph_ms=timed_ms(graphed, 30), graph_host_ms=host_ms(graphed),
+               eager_ms=timed_ms(eager, 30), eager_host_ms=host_ms(eager))
+    print("rotation bound: " + json.dumps(out), flush=True)
+    return out
 
 
 def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop, h_trim, big_src):
@@ -1375,6 +1458,7 @@ def cli_phase(chk, dev, src_h, R_h, t_h, scale_h, psrc, ptgt, pR, pt, clock_hz):
 
 
 FULLCERT_WALL_S = 20.0          # 8a: BnB budget of each subset solve
+TRIM_FULLCERT_WALL_S = 5.0      # 8a trimmed: BnB budget of each subset solve
 CHECKPOINT_ROUNDS = 200         # 8b: rounds before the interruption
 CHECKPOINT_EVERY = 25           # 8b: rounds between snapshots
 NESTED_WALL_S = 30.0            # 8c: BnB budget of the nested solve
@@ -1452,11 +1536,48 @@ def fullcert_phase(chk, dev, src, tgt, R_gt, t_gt, scale, psrc, ptgt, pR, pt, he
     out["K3 full cert"] = check_k3(chk, dev, S_full, T, rng, clock_hz, pop, tag)
     report("K3 full cert", out["K3 full cert"])
     out["K2 full cert"] = check_k2(chk, dev, S_full, T, rng, clock_hz, 8 * pop, tag)
+    out["K5 full cert"] = check_k5(chk, dev, S_full, T, rng, clock_hz, 8 * pop,
+                                   int(round(full.shape[0] * (1.0 - TRIM))), tag)
+    # its row counts 8a's launches at this shape only (Np, nodes), not those
+    # at the first subset's
+    out["K5 full cert"]["k5_shape_key"] = [full.shape[0] + (-full.shape[0]) % 128, 8 * pop]
     out["full cert"] = phase_8a(chk, dev, full, tgt, R_gt, t_gt, extent)
+    out["trimmed screen full cert"] = phase_8a_trimmed(chk, dev, full, tgt, R_gt, t_gt, extent)
     out["checkpoint"] = phase_8b(chk, dev, src, tgt, R_gt, t_gt, headline)
     out["nested"] = phase_8c(chk, dev, src, tgt, R_gt, t_gt, extent)
     out["card vs cpu"] = phase_8d(chk, dev, psrc, ptgt, pR, pt)
     return out
+
+
+def record_subset_solves(fullcert, solves, label):
+    """Wrap ``fullcert.make_solver`` so that each subset solve of a full
+    cert appends its subset size, wall, rounds, nodes, nodes/s and gaps to
+    ``solves``; returns the original, which the caller puts back."""
+    import torch
+
+    orig = fullcert.make_solver
+
+    def recording(*a, **k):
+        s = orig(*a, **k)
+        run = s.run
+
+        def timed_run(*x):
+            t0 = time.perf_counter()
+            r = run(*x)
+            torch.cuda.synchronize()
+            bnb = r.metrics.timers.get("bnb", 0.0)
+            solves.append(dict(subset=s.src.shape[0], wall_s=time.perf_counter() - t0,
+                               rounds=r.rounds, nodes=r.rot_nodes,
+                               nodes_per_s=r.rot_nodes / max(bnb, 1e-9), gap=r.gap,
+                               gap_full=r.gap_full, converged=bool(r.converged)))
+            print(f"{label}: " + json.dumps(solves[-1]), flush=True)
+            return r
+
+        s.run = timed_run
+        return s
+
+    fullcert.make_solver = recording
+    return orig
 
 
 def phase_8a(chk, dev, full, tgt, R_gt, t_gt, extent):
@@ -1481,31 +1602,10 @@ def phase_8a(chk, dev, full, tgt, R_gt, t_gt, extent):
     chk.expect(np.array_equal(grown["card"], grown["cpu"]),
                f"8a the first grown subset ({grown['card'].shape[0]} points) is the same on "
                "the card and on the CPU path")
-    solves = []
-    orig = fullcert.make_solver
-
-    def recording(*a, **k):
-        s = orig(*a, **k)
-        run = s.run
-
-        def timed_run(*x):
-            t0 = time.perf_counter()
-            r = run(*x)
-            torch.cuda.synchronize()
-            bnb = r.metrics.timers.get("bnb", 0.0)
-            solves.append(dict(subset=s.src.shape[0], wall_s=time.perf_counter() - t0,
-                               rounds=r.rounds, nodes=r.rot_nodes,
-                               nodes_per_s=r.rot_nodes / max(bnb, 1e-9), gap=r.gap,
-                               gap_full=r.gap_full, converged=bool(r.converged)))
-            print("8a refinement: " + json.dumps(solves[-1]), flush=True)
-            return r
-
-        s.run = timed_run
-        return s
-
     print(f"8a: {full.shape[0]} source / {tgt.shape[0]} target points, mse at the true pose "
           f"{mse_true:.6g}, mse_threshold {params.mse_threshold:.6g}", flush=True)
-    fullcert.make_solver = recording
+    solves = []
+    orig = record_subset_solves(fullcert, solves, "8a refinement")
     try:
         torch.cuda.synchronize()
         fused.reset_launch_counts()
@@ -1539,6 +1639,78 @@ def phase_8a(chk, dev, full, tgt, R_gt, t_gt, extent):
                f"8a gap_full {res.gap_full} reported and >= 0")
     chk.expect(res.sse_full is not None and abs(res.sse_full - sse_cpu) <= 1e-5 * abs(sse_cpu),
                f"8a sse_full {res.sse_full} vs the CPU path's score {sse_cpu} (rtol 1e-5)")
+    return out
+
+
+def phase_8a_trimmed(chk, dev, full, tgt, R_gt, t_gt, extent):
+    """8a, trimmed: ``register_full_cert`` with trim 0.25 on
+    ``bound_backend="screen"``, TRIM_FULLCERT_WALL_S a solve.  Its subsets
+    start at twice the full drop count (20,128 points) and grow to the whole
+    source (K5 at Np = 40,320, 315 KB of scratch a warp)."""
+    import collections
+
+    import torch
+
+    from goicp_tpu_torch import BnbParams
+    from goicp_tpu_torch.bnb import fullcert
+    from goicp_tpu_torch.nn import fused
+
+    N = full.shape[0]
+    mse_true = mse_at_truth(dev, full, tgt, R_gt, t_gt, TRIM)
+    params = BnbParams(mse_threshold=MSE_FACTOR * mse_true, max_wall_s=TRIM_FULLCERT_WALL_S,
+                       trim_fraction=TRIM, bound_backend="screen")
+    drop = N - int(round(N * (1.0 - TRIM)))
+    plan = fullcert._subset_sizes(min(N, max(params.bound_points, 2 * drop)), N, 2.0, 3)
+    print(f"8a trimmed: {N} source / {tgt.shape[0]} target points, trim {TRIM}, screen, "
+          f"mse at the true pose {mse_true:.6g}, subsets planned {plan}", flush=True)
+    k5_np = collections.Counter()
+    k5 = fused._k5_kernel
+
+    def spy(srcT_ext, wm, params_, *a, **k):
+        k5_np[(srcT_ext.shape[1], params_.shape[0])] += 1
+        return k5(srcT_ext, wm, params_, *a, **k)
+
+    solves = []
+    orig = record_subset_solves(fullcert, solves, "8a trimmed refinement")
+    fused._k5_kernel = spy
+    try:
+        torch.cuda.synchronize()
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fullcert.register_full_cert(full, tgt, params, max_refinements=3, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fullcert.make_solver = orig
+        fused._k5_kernel = k5
+    launches = dict(fused.launches)
+    shapes = {f"{q}x{t}": n for (q, t), n in sorted(fused.nn_launch_shapes.items())}
+    Np_full = N + (-N) % 128
+    Mp = tgt.shape[0] + (-tgt.shape[0]) % 128
+    at_full = {f"{b} nodes": n for (np_, b), n in sorted(k5_np.items()) if np_ == Np_full}
+    plans = {b: fused.k5_plan(b, Np_full, Mp) for (np_, b) in k5_np if np_ == Np_full}
+    R, t = np.asarray(res.transform.R), np.asarray(res.transform.t)
+    rot_err, t_err = pose_limits(chk, "8a trimmed full cert", R, t, R_gt, t_gt, extent)
+    out = dict(wall_s=wall, refinements=solves, subset_sizes=[x["subset"] for x in solves],
+               plan=plan, gap_full=res.gap_full, sse_full=res.sse_full,
+               converged=bool(res.converged), rot_err_deg=rot_err, t_err=t_err,
+               launches=launches, k1_launches_by_shape=shapes,
+               k5_launches_by_np={f"{np_}x{b}": n for (np_, b), n
+                                                     in sorted(k5_np.items())},
+               k5_plans_at_whole_source={str(b): p for b, p in plans.items()},
+               mse_true=mse_true, mse_threshold=params.mse_threshold)
+    print("8a trimmed: " + json.dumps({k: out[k] for k in (
+        "wall_s", "subset_sizes", "gap_full", "sse_full", "launches",
+        "k5_launches_by_np")}), flush=True)
+    for k in ("nearest_neighbor_mxu", "bounds_nodes_trimmed", "bounds_groups_trimmed"):
+        chk.expect(launches[k] > 0, f"8a trimmed launched {k} {launches[k]} times")
+    chk.expect(out["subset_sizes"] == plan and plan[-1] == N,
+               f"8a trimmed subsets {out['subset_sizes']}: the plan {plan}, up to the whole "
+               f"source")
+    chk.expect(bool(at_full), f"8a trimmed: K5 ran at the whole source (Np {Np_full}) {at_full}, "
+                              f"plans {plans}")
+    chk.expect(res.gap_full is not None and res.gap_full >= 0.0,
+               f"8a trimmed gap_full {res.gap_full} reported and >= 0")
     return out
 
 
@@ -1723,6 +1895,7 @@ KERNELS = (
     ("K3 full cert", "min_d2_groups", "full cert"),
     ("K4", "min_d2_nodes", "trimmed solve"),
     ("K5", "bounds_nodes_trimmed", "trimmed screen solve"),
+    ("K5 full cert", "bounds_nodes_trimmed", "trimmed screen full cert"),
     ("K6", "bounds_groups_trimmed", "trimmed screen solve"),
     ("K7", "bounds_groups", None),
 )
@@ -1765,12 +1938,13 @@ def main() -> int:
     big = big_source()
     dev = torch.device("cuda")
     recs = kernel_checks(chk, dev, src, tgt, clock_mhz * 1e6, se3_pop, h_trim, big)
+    rot_bound = check_rotation_bound(chk, dev)
     phases = {
         "solve": solve_bunny(chk, dev, "solve", src, tgt, R_gt, t_gt,
                              ("nearest_neighbor_mxu", "bounds_nodes", "min_d2_groups")),
         "trimmed solve": solve_bunny(chk, dev, "trimmed solve", psrc, ptgt, pR, pt,
                                      ("nearest_neighbor_mxu", "min_d2_nodes", "min_d2_groups"),
-                                     trim=TRIM),
+                                     trim=TRIM, max_wall_s=TRIM_WALL_S),
         "trimmed screen solve": solve_bunny(
             chk, dev, "trimmed screen solve", psrc, ptgt, pR, pt,
             ("nearest_neighbor_mxu", "bounds_nodes_trimmed", "bounds_groups_trimmed"),
@@ -1790,9 +1964,10 @@ def main() -> int:
                     nodes=phases["solve"]["nodes"])
     fc_out = fullcert_phase(chk, dev, src, tgt, R_gt, t_gt, scale, psrc, ptgt, pR, pt, headline,
                             clock_mhz * 1e6)
-    for k in ("K1 coverage", "K2 full cert", "K3 full cert"):
+    for k in ("K1 coverage", "K2 full cert", "K3 full cert", "K5 full cert"):
         recs[k] = fc_out.pop(k)
-    phases["full cert"] = fc_out["full cert"]
+    for k in ("full cert", "trimmed screen full cert"):
+        phases[k] = fc_out[k]
     fc_out["phase_s"] = time.perf_counter() - t8
     print(f"phase 8: {fc_out['phase_s']:.1f} s", flush=True)
     prof = None
@@ -1808,11 +1983,14 @@ def main() -> int:
     for key, counter, phase in KERNELS:
         r = dict(recs[key])
         shape = r.pop("shape_key", None)
+        k5_shape = r.pop("k5_shape_key", None)
 
         def count(info):
-            if shape is None:
-                return info["launches"][counter]
-            return info["k1_launches_by_shape"].get(f"{shape[0]}x{shape[1]}", 0)
+            if shape is not None:
+                return info["k1_launches_by_shape"].get(f"{shape[0]}x{shape[1]}", 0)
+            if k5_shape is not None:
+                return info.get("k5_launches_by_np", {}).get(f"{k5_shape[0]}x{k5_shape[1]}", 0)
+            return info["launches"][counter]
 
         if phase is None:
             r["launches"] = r.pop("check_launches")
@@ -1820,7 +1998,8 @@ def main() -> int:
                                   "(goicp_tpu/bnb/se3_eval.py:436)")
         else:
             r["launches"] = count(phases[phase])
-            r["launches_from"] = phase if shape is None else f"{phase}, at this shape"
+            r["launches_from"] = (phase if shape is None and k5_shape is None
+                                  else f"{phase}, at this shape")
         r["launches_by_phase"] = {k: count(v) for k, v in phases.items()}
         prefix = key.split()[0] + " "
         r["check"] = "fail" if any(f.startswith(prefix) for f in chk.failed) else "pass"
@@ -1830,7 +2009,8 @@ def main() -> int:
         json.dump(dict(card=card, kind=kind, clock_mhz=clock_mhz, kernels=kernels_line,
                        solve=phases["solve"], trimmed_solve=phases["trimmed solve"],
                        trimmed_screen_solve=phases["trimmed screen solve"],
-                       small=small, small_trimmed=small_trim, cli=cli_out, phase8=fc_out,
+                       small=small, small_trimmed=small_trim, rotation_bound=rot_bound,
+                       cli=cli_out, phase8=fc_out,
                        failed=chk.failed,
                        total_s=time.perf_counter() - t_start), f, indent=1)
     if prof is not None:

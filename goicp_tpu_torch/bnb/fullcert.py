@@ -61,27 +61,6 @@ def _subset_sizes(n0: int, N: int, grow: float, max_refinements: int):
     return sizes
 
 
-def _check_k5_limit(sizes, n_tgt: int, params: BnbParams, dev: torch.device):
-    """A trimmed solve on ``bound_backend="screen"`` runs K5, whose per-warp
-    scratch of a node's ``[2, Np]`` terms lives in shared memory: a source
-    subset too large for it is refused before the first solve, rather than
-    in the middle of the refinements."""
-    if dev.type != "cuda" or params.trim_fraction <= 0.0 or params.bound_backend != "screen":
-        return
-    Mp = n_tgt + (-n_tgt) % 128
-    for n in sizes:
-        Np = n + (-n) % 128
-        try:
-            fused.k5_plan(1, Np, Mp)
-        except RuntimeError as e:
-            raise ValueError(
-                f"register_full_cert: a trimmed solve with bound_backend='screen' would run "
-                f"K5 on a {n}-point subset (Np = {Np}), above the shared-memory limit of its "
-                f"per-warp scratch (8·Np bytes); use bound_backend='mxu' or fewer "
-                f"refinements (ROADMAP queue 3)"
-            ) from e
-
-
 def register_full_cert(
     src,
     tgt,
@@ -119,7 +98,6 @@ def register_full_cert(
         # the over-trimmed subset objective needs a usefully large h_s:
         # start with at least twice the full drop count
         n0 = min(N, max(n0, 2 * drop_f))
-    _check_k5_limit(_subset_sizes(n0, N, grow, max_refinements), np.shape(tgt)[0], params, dev)
     idx = np.sort(np.random.default_rng(777).choice(N, n0, replace=False))
 
     prior = None

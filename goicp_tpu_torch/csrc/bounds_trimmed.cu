@@ -36,12 +36,15 @@
 //   (mxu_max admits 32,768) each warp reads them from global memory, where
 //   they stay in L1/L2.  Warps take nodes from a global counter, so a warp
 //   that screens early takes the next node.
-// - Each warp's [2, Np] scratch lives in dynamic shared memory (8·Np bytes:
-//   12 KB at Np = 1,536, 64 KB at the 8,192-point bound_points cap).  The
-//   plan picks W for the most resident warps per SM; where one warp's
-//   scratch and the targets do not fit together, the targets stay in global
-//   memory.  A source whose scratch alone does not fit (Np above ~29,000,
-//   232,448 / 8) is refused with cudaErrorInvalidConfiguration.
+// - Each warp's [2, Np] scratch (8·Np bytes: 12 KB at Np = 1,536, 315 KB
+//   at the trimmed full cert's whole source of 40,256 points) lives in a
+//   global [warps in flight, 2, Np] buffer that the caller allocates from
+//   the plan: the terms are written once and read by the bisection's 25
+//   passes from L1/L2.  Shared memory holds only the resident targets, so
+//   an SM keeps as many warps as its registers allow at any Np (in shared
+//   memory the scratch left one warp an SM at Np = 16,384 and did not fit
+//   above ~29,000 points).  The plan picks W for the most resident warps
+//   per SM and caps the grid so the buffer stays under kBtScratchMax bytes.
 
 #include <algorithm>
 
@@ -52,6 +55,7 @@ namespace goicp {
 constexpr int kBtMaxWarps = 8;
 constexpr int kBtResidentMax = 6144;  // targets resident in shared memory
 constexpr int kBtUnroll = 4;          // targets loaded ahead per step
+constexpr long long kBtScratchMax = 1LL << 30;  // bytes of the global scratch
 
 template <int PPL, bool RES>
 __global__ void __launch_bounds__(32 * kBtMaxWarps)
@@ -61,6 +65,7 @@ trimmed_nodes_kernel(const float* __restrict__ params,  // [B, 24]
                      int Np,
                      const float* __restrict__ wm,      // [Mp, 8]
                      int Mp, int h, int drop,
+                     float* __restrict__ gscr,          // [grid·W, 2, Np]
                      int* __restrict__ next,            // node counter, 0
                      float* __restrict__ ub_out,        // [B]
                      float* __restrict__ lb_out) {      // [B]
@@ -69,8 +74,7 @@ trimmed_nodes_kernel(const float* __restrict__ params,  // [B, 24]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float4* tg = RES ? bt_smem : reinterpret_cast<const float4*>(wm);
   constexpr int step = RES ? 1 : 2;  // float4s per target row
-  float* scr = reinterpret_cast<float*>(bt_smem + (RES ? Mp : 0)) +
-               static_cast<size_t>(warp) * 2 * Np;
+  float* scr = gscr + (static_cast<size_t>(blockIdx.x) * (blockDim.x >> 5) + warp) * 2 * Np;
   if constexpr (RES) {
     for (int k = threadIdx.x; k < Mp; k += blockDim.x)
       cp_async16(bt_smem + k, wm + static_cast<size_t>(k) * 8);
@@ -161,6 +165,8 @@ cudaError_t bt_occupancy(int warps, size_t smem, int optin_dyn, int& occ) {
   return err;
 }
 
+// W (forced, or the most resident warps per SM; ties to the larger CTA,
+// which stages the targets fewer times) and the persistent grid.
 template <int PPL>
 cudaError_t bt_plan(int B, int Np, int Mp, int want_warps, BtPlan& p) {
   int dev = 0, sms = 0, optin = 0;
@@ -171,34 +177,33 @@ cudaError_t bt_plan(int B, int Np, int Mp, int want_warps, BtPlan& p) {
   if (err != cudaSuccess) return err;
   const size_t per_warp = static_cast<size_t>(8) * Np;
   const size_t tgt = static_cast<size_t>(16) * Mp;
-  p.resident = Mp <= kBtResidentMax && tgt + per_warp <= static_cast<size_t>(optin);
-  const size_t base = p.resident ? tgt : 0;
+  p.resident = Mp <= kBtResidentMax && tgt <= static_cast<size_t>(optin);
+  p.smem = p.resident ? tgt : 0;
   int best = 0;
   for (int w = 1; w <= kBtMaxWarps; ++w) {
     if (want_warps && w != want_warps) continue;
-    const size_t smem = base + w * per_warp;
-    if (smem > static_cast<size_t>(optin)) break;
     int occ = 0;
-    err = p.resident ? bt_occupancy<PPL, true>(w, smem, optin, occ)
-                     : bt_occupancy<PPL, false>(w, smem, optin, occ);
+    err = p.resident ? bt_occupancy<PPL, true>(w, p.smem, optin, occ)
+                     : bt_occupancy<PPL, false>(w, p.smem, optin, occ);
     if (err != cudaSuccess) return err;
-    if (occ * w >= best && occ > 0) {  // ties: the larger CTA stages less
+    if (occ * w >= best && occ > 0) {
       best = occ * w;
       p.warps = w;
-      p.smem = smem;
       p.grid = occ * sms;
     }
   }
   if (best == 0) return cudaErrorInvalidConfiguration;
-  const long long need = (static_cast<long long>(B) + p.warps - 1) / p.warps;
-  p.grid = static_cast<int>(std::max(1LL, std::min<long long>(p.grid, need)));
+  long long grid = std::min<long long>(p.grid, (static_cast<long long>(B) + p.warps - 1) / p.warps);
+  grid = std::min<long long>(grid, kBtScratchMax / (static_cast<long long>(per_warp) * p.warps));
+  p.grid = static_cast<int>(std::max(1LL, grid));
   return cudaSuccess;
 }
 
 template <int PPL>
 int launch_trimmed_nodes(const float* params, int B, const float* srcT, int Np,
                          const float* wm, int Mp, int warps, int h, int drop,
-                         int* next, float* ub, float* lb, cudaStream_t st, int* plan_out) {
+                         float* gscr, int* next, float* ub, float* lb, cudaStream_t st,
+                         int* plan_out) {
   BtPlan p;
   cudaError_t err = bt_plan<PPL>(B, Np, Mp, warps, p);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -209,31 +214,32 @@ int launch_trimmed_nodes(const float* params, int B, const float* srcT, int Np,
     plan_out[3] = static_cast<int>(p.smem);
     return 0;
   }
+  if (gscr == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaMemsetAsync(next, 0, sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.resident)
     trimmed_nodes_kernel<PPL, true><<<p.grid, 32 * p.warps, p.smem, st>>>(
-        params, B, srcT, Np, wm, Mp, h, drop, next, ub, lb);
+        params, B, srcT, Np, wm, Mp, h, drop, gscr, next, ub, lb);
   else
     trimmed_nodes_kernel<PPL, false><<<p.grid, 32 * p.warps, p.smem, st>>>(
-        params, B, srcT, Np, wm, Mp, h, drop, next, ub, lb);
+        params, B, srcT, Np, wm, Mp, h, drop, gscr, next, ub, lb);
   return static_cast<int>(cudaGetLastError());
 }
 
 int trimmed_nodes(const float* params, int B, const float* srcT, int Np,
                   const float* wm, int Mp, int tq, int warps, int h, int drop,
-                  int* next, float* ub, float* lb, void* stream, int* plan_out) {
+                  float* gscr, int* next, float* ub, float* lb, void* stream, int* plan_out) {
   if (B <= 0 || Np <= 0 || Mp <= 0 || Mp % kBtUnroll != 0 || tq <= 0 || Np % tq != 0 ||
       warps < 0 || warps > kBtMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (tq) {
     case 128: return launch_trimmed_nodes<4>(params, B, srcT, Np, wm, Mp, warps, h, drop,
-                                             next, ub, lb, st, plan_out);
+                                             gscr, next, ub, lb, st, plan_out);
     case 256: return launch_trimmed_nodes<8>(params, B, srcT, Np, wm, Mp, warps, h, drop,
-                                             next, ub, lb, st, plan_out);
+                                             gscr, next, ub, lb, st, plan_out);
     case 384: return launch_trimmed_nodes<12>(params, B, srcT, Np, wm, Mp, warps, h, drop,
-                                              next, ub, lb, st, plan_out);
+                                              gscr, next, ub, lb, st, plan_out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -242,20 +248,22 @@ int trimmed_nodes(const float* params, int B, const float* srcT, int Np,
 
 // K5: (ub, lb) [B] for B nodes' parameter rows [B, 24], with point blocks of
 // tq = 128, 256 or 384 (Np a multiple of tq), `warps` warps per CTA (0: the
-// plan's pick) and `next` one int of scratch for the node counter.
+// plan's pick), `gscr` the global scratch (grid·warps·2·Np floats of the
+// plan) and `next` one int of scratch for the node counter.
 extern "C" int goicp_bounds_nodes_trimmed(const float* params, int B,
                                           const float* srcT, int Np,
                                           const float* wm, int Mp, int tq,
-                                          int warps, int h, int drop, int* next,
-                                          float* ub, float* lb, void* stream) {
-  return goicp::trimmed_nodes(params, B, srcT, Np, wm, Mp, tq, warps, h, drop, next,
-                              ub, lb, stream, nullptr);
+                                          int warps, int h, int drop,
+                                          float* gscr, int* next, float* ub, float* lb,
+                                          void* stream) {
+  return goicp::trimmed_nodes(params, B, srcT, Np, wm, Mp, tq, warps, h, drop, gscr, next, ub,
+                              lb, stream, nullptr);
 }
 
 // K5's launch plan without a launch: out = (targets resident, warps per CTA,
 // grid, dynamic shared bytes).
 extern "C" int goicp_bounds_nodes_trimmed_plan(int B, int Np, int Mp, int tq, int warps,
                                                int* out) {
-  return goicp::trimmed_nodes(nullptr, B, nullptr, Np, nullptr, Mp, tq, warps, 0, 0,
+  return goicp::trimmed_nodes(nullptr, B, nullptr, Np, nullptr, Mp, tq, warps, 0, 0, nullptr,
                               nullptr, nullptr, nullptr, nullptr, out);
 }

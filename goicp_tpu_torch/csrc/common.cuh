@@ -38,7 +38,8 @@ __device__ __forceinline__ float dist2(float4 w, float qx, float qy, float qz) {
 // Asynchronous 16-byte copy from global to shared memory (cp.async, L2
 // only); both addresses 16-byte aligned.  A group of copies is committed
 // with cp_async_commit and awaited with cp_async_wait<N> (all but the N
-// newest groups complete), then a __syncthreads() makes them visible.
+// newest groups complete), then a barrier (__syncthreads(), or __syncwarp()
+// for a warp's own copies) makes them visible.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -49,33 +50,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy targets [m0, m0+n) of wm [Mp, 8] (cols m_x, m_y, m_z, ...) into
-// shared memory as float4 (x, y, z, 0), one target per thread per pass.
-__device__ __forceinline__ void stage_targets(float4* tile, const float* wm,
-                                              int m0, int n) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const float* w = wm + static_cast<size_t>(m0 + k) * 8;
-    tile[k] = make_float4(w[0], w[1], w[2], 0.f);
-  }
-}
-
-// min over all Mp targets of |m - q|², staging TILE targets at a time
-// through shared `tile`.  Every thread of the CTA calls it (it syncs).
-template <int TILE>
-__device__ __forceinline__ float min_dist2(float4* tile, const float* wm,
-                                           int Mp, float qx, float qy,
-                                           float qz) {
-  float best = finf();
-  for (int m0 = 0; m0 < Mp; m0 += TILE) {
-    const int n = min(TILE, Mp - m0);
-    __syncthreads();
-    stage_targets(tile, wm, m0, n);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) best = fminf(best, dist2(tile[k], qx, qy, qz));
-  }
-  return best;
 }
 
 // The grouped kernels' separable form (mxu.py:_min_d2_grouped_kernel): for

@@ -24,6 +24,7 @@ import collections
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from goicp_tpu_torch.nn import kernels
@@ -97,6 +98,106 @@ def sqrt_rn(x):
     of an f32 value rounds to the correctly rounded f32 root (53 ≥ 2·24 + 2
     bits)."""
     return torch.sqrt(x.double()).float()
+
+
+# The f32 sine, cosine and arc cosine of the JAX package's jitted CPU
+# functions.  XLA's CPU backend calls the C library's sinf, cosf and atan2f
+# (jnp.arccos(x) is atan2f(sqrt((1 - x)(1 + x)), x)); these repeat glibc
+# 2.36's algorithms (sysdeps/ieee754/flt-32: s_sinf.c, s_cosf.c with their
+# double-precision polynomials; e_atan2f.c and s_atanf.c in f32) as tensor
+# operations, bit for bit, on any device.  ATen's sin, cos and acos give
+# other last bits.
+
+_HPI_INV = float.fromhex("0x1.45f306dc9c883p-1")       # 2/π
+_HPI = float.fromhex("0x1.921fb54442d18p0")            # π/2
+_SC_C = [float.fromhex(h) for h in ("0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+                                     "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16")]
+_SC_S = [float.fromhex(h) for h in ("-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+                                     "-0x1.994eb3774cf24p-13")]
+
+
+def sincos_libm(y):
+    """``(sin y, cos y)`` of f32 ``y``, |y| < 120, as glibc's ``sinf`` and
+    ``cosf`` round them: below 0.75 the polynomials in ``x = y`` (f64),
+    else ``x - n·π/2`` for the nearest quadrant ``n``, a sign and the
+    quadrant's polynomial; below 2⁻¹² ``y`` and 1."""
+    x = y.double()
+    top = (y.view(torch.int32) >> 20) & 0x7FF
+    small = top < 0x3F4
+    n = torch.where(small, torch.zeros_like(x), torch.round(x * _HPI_INV))
+    r = torch.where(small, x, x - n * _HPI)
+    q = n.to(torch.int64)
+    sgn = 1.0 - 2.0 * ((q ^ (q >> 1)) & 1).double()       # +1, -1, -1, +1 by q mod 4
+    xs, x2 = r * sgn, r * r
+    x3 = xs * x2
+    ps = (xs + x3 * _SC_S[0]) + (x3 * x2) * (_SC_S[1] + x2 * _SC_S[2])
+    x4 = x2 * x2
+    pc = ((_SC_C[0] + x2 * _SC_C[1]) + x4 * _SC_C[2]) + (x4 * x2) * (_SC_C[3] + x2 * _SC_C[4])
+    pc = torch.where((q & 2) == 2, -pc, pc)
+    odd = (q & 1) == 1
+    tiny = top < 0x398
+    sin = torch.where(tiny, y, torch.where(odd, pc, ps).float())
+    cos = torch.where(tiny, torch.ones_like(y), torch.where(odd, ps, pc).float())
+    return sin, cos
+
+
+def _f32v(v: float) -> float:
+    """``v`` rounded to f32, as a Python float: a scalar operand that f32
+    tensor arithmetic takes as it is, with no copy to the device."""
+    return float(np.float32(v))
+
+
+_ATANHI = [_f32v(v) for v in (4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01,
+                              1.5707962513e+00)]
+_ATANLO = [_f32v(v) for v in (5.0121582440e-09, 3.7748947079e-08, 3.4473217170e-08,
+                              7.5497894159e-08)]
+_AT = [_f32v(v) for v in (3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01,
+                          -1.1111110449e-01, 9.0908870101e-02, -7.6918758452e-02,
+                          6.6610731184e-02, -5.8335702866e-02, 4.9768779427e-02,
+                          -3.6531571299e-02, 1.6285819933e-02)]
+_PI_F, _PIO2_F, _PI_LO_F = _f32v(3.1415927410e+00), _f32v(1.5707963705e+00), _f32v(-8.7422776573e-08)
+_ATAN_HUGE = _f32v(np.float32(_PIO2_F) + np.float32(0.5) * np.float32(_PI_LO_F))
+
+
+def _atanf_pos(w):
+    """glibc's ``atanf`` of f32 ``w ≥ 0`` (fdlibm: a reduction into four
+    intervals, then an 11-term odd polynomial, every step in f32)."""
+    iw = w.view(torch.int32)
+    idx = ((iw >= 0x3EE00000).int() + (iw >= 0x3F300000).int() + (iw >= 0x3F980000).int()
+           + (iw >= 0x401C0000).int()) - 1                 # -1, then intervals 0-3
+    x = torch.where(idx == 0, (2.0 * w - 1.0) / (2.0 + w),
+        torch.where(idx == 1, (w - 1.0) / (w + 1.0),
+        torch.where(idx == 2, (w - 1.5) / (1.0 + 1.5 * w),
+        torch.where(idx == 3, -1.0 / w, w))))
+    z = x * x
+    q = z * z
+    a = _AT
+    s1 = z * (a[0] + q * (a[2] + q * (a[4] + q * (a[6] + q * (a[8] + q * a[10])))))
+    s2 = q * (a[1] + q * (a[3] + q * (a[5] + q * (a[7] + q * a[9]))))
+    hi = torch.full_like(w, _ATANHI[0])
+    lo = torch.full_like(w, _ATANLO[0])
+    for k in (1, 2, 3):
+        hi = torch.where(idx == k, _ATANHI[k], hi)
+        lo = torch.where(idx == k, _ATANLO[k], lo)
+    out = torch.where(idx < 0, x - x * (s1 + s2), hi - ((x * (s1 + s2) - lo) - x))
+    out = torch.where(iw >= 0x4C000000, _f32v(np.float32(_ATANHI[3]) + np.float32(_ATANLO[3])),
+                      out)
+    return torch.where(iw < 0x31000000, w, out)
+
+
+def acos_libm(x):
+    """``arccos`` of f32 ``x`` in [-1, 1] as XLA's CPU build computes it:
+    ``atan2f(sqrt((1 - x)·(1 + x)), x)`` with glibc's ``atan2f``."""
+    y = sqrt_rn((1.0 - x) * (1.0 + x))
+    iy, hx = y.view(torch.int32), x.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    k = (iy - ix) >> 23
+    z = _atanf_pos(torch.abs(y / x))
+    z = torch.where(k > 60, _ATAN_HUGE, z)
+    z = torch.where((hx < 0) & (k < -60), 0.0, z)
+    out = torch.where(hx < 0, _PI_F - (z - _PI_LO_F), z)
+    out = torch.where(ix == 0, _PIO2_F, out)
+    return torch.where(iy == 0, torch.where(hx < 0, _PI_F, y), out)
 
 
 def _sq3_fma(v):
@@ -547,17 +648,23 @@ def _staged(term, pv):
 # ---------------------------------------------------------------------------
 
 
-def bounds_block_sums_plain(srcT_ext, wm, params):
-    """Per point-block sums of the ub and lb terms, ``[B, nb]`` each, with
-    blocks of ``tq = _pick_tile(Np, 384)`` points (no screening)."""
-    Np = srcT_ext.shape[1]
-    tq = _pick_tile(Np, TQB)
+def _k2_terms(srcT_ext, wm, params):
+    """K2's per-point ub and lb terms, ``[B, Np]`` each: ``d_hi²·valid``
+    and ``c²·valid``."""
     d_hi, c = _point_terms(
         _min_d2_plain(*_transform(params, srcT_ext), wm), params[:, 14:15],
         params[:, 12:13], srcT_ext[3][None], params[:, 13:14],
     )
     pv = srcT_ext[4][None]
-    return _block_sums((d_hi * d_hi) * pv, tq), _block_sums((c * c) * pv, tq)
+    return (d_hi * d_hi) * pv, (c * c) * pv
+
+
+def bounds_block_sums_plain(srcT_ext, wm, params):
+    """Per point-block sums of the ub and lb terms, ``[B, nb]`` each, with
+    blocks of ``tq = _pick_tile(Np, 384)`` points (no screening)."""
+    tq = _pick_tile(srcT_ext.shape[1], TQB)
+    u, l = _k2_terms(srcT_ext, wm, params)
+    return _block_sums(u, tq), _block_sums(l, tq)
 
 
 def bounds_nodes_plain(srcT_ext, wm, params):
@@ -567,11 +674,46 @@ def bounds_nodes_plain(srcT_ext, wm, params):
     return ub, lb
 
 
+def _warp_order_sums(x, tq: int):
+    """Block sums of ``x [B, Np]`` over blocks of ``tq`` points in K2's
+    order: within a block, for each r < tq/32 the 32 points ``32·r + L`` are
+    added by an xor butterfly (offsets 16, 8, 4, 2, 1; each step adds a
+    lane's partner to it), then the tq/32 partials in r order."""
+    B, Np = x.shape
+    x = x.reshape(B, Np // tq, tq // 32, 32)
+    lane = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[..., lane ^ off]
+    x = x[..., 0]
+    acc = x[..., 0]
+    for r in range(1, x.shape[-1]):
+        acc = acc + x[..., r]
+    return acc
+
+
+def bounds_nodes_kernel_order(srcT_ext, wm, params):
+    """K2's arithmetic in plain PyTorch, with the kernel's summation order
+    (:func:`_warp_order_sums`, then the carried sums block by block):
+    ``(ub, lb) [B]`` bit-equal to the kernel's on any launch plan.  Only
+    the order of the adds differs from :func:`bounds_nodes_plain`, which the
+    CPU path runs (its parity with the JAX package rests on it)."""
+    tq = _pick_tile(srcT_ext.shape[1], TQB)
+    u, l = _k2_terms(srcT_ext, wm, params)
+    ub, lb, _ = screen_scan(_warp_order_sums(u, tq), _warp_order_sums(l, tq), params[:, 15])
+    return ub, lb
+
+
 def bounds_nodes(srcT_ext, wm, params):
     """Fused screened bounds for singleton nodes: ``(ub, lb) [B]``
     (``mxu.py:1012``)."""
     if not _route("bounds_nodes", srcT_ext, wm, params):
         return bounds_nodes_plain(srcT_ext, wm, params)
+    return _k2_kernel(srcT_ext, wm, params)
+
+
+def _k2_kernel(srcT_ext, wm, params, warps: int = 0, grid: int = 0, route: str = "auto"):
+    """K2's launch; ``warps``, ``grid`` and ``route`` force its plan (0: the
+    plan's pick; see :func:`k2_plan`)."""
     B, Np, Mp = params.shape[0], srcT_ext.shape[1], wm.shape[0]
     _expect("bounds_nodes", srcT_ext, (8, Np))
     _expect("bounds_nodes", wm, (Mp, 8))
@@ -580,10 +722,37 @@ def bounds_nodes(srcT_ext, wm, params):
     lb = torch.empty_like(ub)
     if B == 0:
         return ub, lb
+    state = torch.empty((B + 1,), dtype=torch.int32, device=params.device)
+    carry = torch.empty((B, 2), dtype=torch.float32, device=params.device)
     _launch("bounds_nodes", kernels.lib().goicp_bounds_nodes,
             params.data_ptr(), B, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
-            _pick_tile(Np, TQB), ub.data_ptr(), lb.data_ptr(), _stream(params))
+            _pick_tile(Np, TQB), int(warps), int(grid), K2_ROUTES[route], state.data_ptr(),
+            carry.data_ptr(), ub.data_ptr(), lb.data_ptr(), _stream(params))
     return ub, lb
+
+
+K2_ROUTES = {"auto": 0, "resident": 1, "ring": 2}
+
+
+def k2_plan(B: int, Np: int, Mp: int, warps: int = 0, grid: int = 0,
+            route: str = "auto") -> dict:
+    """K2's launch plan on the current card, without a launch.  Items are
+    (node, point block) pairs, one warp each, taken in block-major order
+    by ``grid`` persistent CTAs of ``warps`` warps; the targets stay
+    resident in shared memory up to 6,144 (``route="resident"``) or stream
+    through each warp's ring (``"ring"``).  ``k`` is the blocks of one node
+    in flight while all ``B`` nodes are live (1: the serial scan's order);
+    ``points_per_lane`` is tq / 32."""
+    tq = _pick_tile(Np, TQB)
+    out = (ctypes.c_int * 4)()
+    kernels.check(kernels.lib().goicp_bounds_nodes_plan(
+        B, Np, Mp, tq, int(warps), int(grid), K2_ROUTES[route], ctypes.addressof(out)),
+        "k2_plan")
+    nb = Np // tq
+    inflight = out[1] * out[2]
+    return dict(targets_resident=bool(out[0]), warps=out[1], grid=out[2], smem=out[3],
+                points_per_lane=tq // 32, blocks=nb,
+                k=min(nb, -(-inflight // B)))
 
 
 # ---------------------------------------------------------------------------
@@ -647,8 +816,8 @@ def bounds_nodes_trimmed_plain(srcT_ext, wm, params, *, h: int, drop: int,
 
 def bounds_nodes_trimmed(srcT_ext, wm, params, *, h: int, drop: int):
     """Fused screened TRIMMED bounds for singleton nodes: ``(ub, lb) [B]``
-    (``mxu.py:777``).  The kernel keeps each node's ``[2, Np]`` scratch in
-    shared memory; a source too large for it (Np above ~29,000) raises."""
+    (``mxu.py:777``).  The kernel keeps each warp's ``[2, Np]`` scratch in
+    a global buffer sized from its plan (:func:`k5_plan`)."""
     if not _route("bounds_nodes_trimmed", srcT_ext, wm, params):
         return bounds_nodes_trimmed_plain(srcT_ext, wm, params, h=h, drop=drop)
     return _k5_kernel(srcT_ext, wm, params, h, drop)
@@ -665,22 +834,32 @@ def _k5_kernel(srcT_ext, wm, params, h: int, drop: int, warps: int = 0):
     lb = torch.empty_like(ub)
     if B == 0:
         return ub, lb
+    plan = _k5_plan_cached(params.device.index, B, Np, Mp, int(warps))
+    gscr = torch.empty((plan["grid"] * plan["warps"], 2, Np), dtype=torch.float32,
+                       device=params.device)
     counter = torch.empty((1,), dtype=torch.int32, device=params.device)
     _launch("bounds_nodes_trimmed", kernels.lib().goicp_bounds_nodes_trimmed,
             params.data_ptr(), B, srcT_ext.data_ptr(), Np, wm.data_ptr(), Mp,
-            _pick_tile(Np, TQB), int(warps), int(h), int(drop), counter.data_ptr(),
-            ub.data_ptr(), lb.data_ptr(), _stream(params))
+            _pick_tile(Np, TQB), int(warps), int(h), int(drop), gscr.data_ptr(),
+            counter.data_ptr(), ub.data_ptr(), lb.data_ptr(), _stream(params))
     return ub, lb
 
 
 def k5_plan(B: int, Np: int, Mp: int, warps: int = 0) -> dict:
     """K5's launch plan on the current card, without a launch: targets
     resident in shared memory or read from global memory, warps per CTA,
-    persistent grid, dynamic shared bytes."""
+    persistent grid (with the warps, the rows of the global scratch) and
+    dynamic shared bytes."""
     out = (ctypes.c_int * 4)()
     kernels.check(kernels.lib().goicp_bounds_nodes_trimmed_plan(
         B, Np, Mp, _pick_tile(Np, TQB), int(warps), ctypes.addressof(out)), "k5_plan")
     return dict(targets_resident=bool(out[0]), warps=out[1], grid=out[2], smem=out[3])
+
+
+@functools.lru_cache(maxsize=256)
+def _k5_plan_cached(index, B: int, Np: int, Mp: int, warps: int) -> dict:
+    with torch.cuda.device(index):
+        return k5_plan(B, Np, Mp, warps)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,10 @@ source never loads a stale library.  Nothing here runs at import.
 
 The C entry points launch on the stream they are given and return
 ``cudaGetLastError()``; the wrappers in :mod:`goicp_tpu_torch.nn.fused`
-raise when it is not 0.  K5 also exports ``*_plan`` (its launch plan,
-without a launch) and K6 ``*_ctas`` (its persistent grid, which sizes the
-scratch its wrapper allocates).
+raise when it is not 0.  K2 and K5 also export ``*_plan`` (their launch
+plans, without a launch; K5's sizes the global scratch its wrapper
+allocates) and K6 ``*_ctas`` (its persistent grid,
+which sizes the scratch its wrapper allocates).
 """
 
 from __future__ import annotations
@@ -100,14 +101,19 @@ def _bind(lib):
     lib.goicp_nn_query.argtypes = [_vp, _i, _vp, _i, _i, _i, _i, _vp, _vp, _vp]
     lib.goicp_min_d2_grouped.restype = _i
     lib.goicp_min_d2_grouped.argtypes = [_vp, _i, _vp, _i, _vp, _i, _vp, _vp]
+    # params, B, srcT, Np, wm, Mp, tq, warps, grid, route, state, carry, ub, lb, stream
     lib.goicp_bounds_nodes.restype = _i
-    lib.goicp_bounds_nodes.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _vp, _vp, _vp]
+    lib.goicp_bounds_nodes.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i, _i, _vp, _vp,
+                                       _vp, _vp, _vp]
+    # B, Np, Mp, tq, warps, grid, route, out[4]
+    lib.goicp_bounds_nodes_plan.restype = _i
+    lib.goicp_bounds_nodes_plan.argtypes = [_i, _i, _i, _i, _i, _i, _i, _vp]
     lib.goicp_bounds_groups.restype = _i
     lib.goicp_bounds_groups.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _vp, _vp, _vp]
-    # params, B, srcT, Np, wm, Mp, tq, warps, h, drop, counter, ub, lb, stream
+    # params, B, srcT, Np, wm, Mp, tq, warps, h, drop, gscr, counter, ub, lb, stream
     lib.goicp_bounds_nodes_trimmed.restype = _i
     lib.goicp_bounds_nodes_trimmed.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i, _i,
-                                               _vp, _vp, _vp, _vp]
+                                               _vp, _vp, _vp, _vp, _vp]
     # B, Np, Mp, tq, warps, out[4]
     lib.goicp_bounds_nodes_trimmed_plan.restype = _i
     lib.goicp_bounds_nodes_trimmed_plan.argtypes = [_i, _i, _i, _i, _i, _vp]

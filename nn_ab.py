@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the nearest-neighbour kernels K1 and K4 and the trimmed bound
-kernels K5 and K6 of the ``goicp_tpu_torch`` package found under ROOT, on
-one GPU::
+"""Time the nearest-neighbour kernels K1 and K4, the bound kernel K2, the
+trimmed bound kernels K5 and K6 and the center-aware rotation bound of the
+``goicp_tpu_torch`` package found under ROOT, on one GPU::
 
     python3 nn_ab.py [ROOT]        # ROOT: a checkout (default: this one)
-    python3 nn_ab.py --routes      # K1, K5, K6 on every launch route, this checkout
+    python3 nn_ab.py --routes      # K1, K2, K5, K6 on every launch route, this checkout
     python3 nn_ab.py [ROOT] --trace  # also trace ROOT's trimmed screen solve
 
 Run it for two checkouts in one session, in turns (A, B, B, A), to compare
@@ -13,7 +13,14 @@ pair: K1 at each shape of ``k1_shapes``, K4 at the largest R-round bucket
 (8·se3_pop nodes) and with 20,000 targets, K5 at that bucket and K6 at
 se3_pop groups and at 263 groups of a 4,096-point source (h = 0.75·N), each
 unscreened and screened at half the median positive lb (``trim_levels``).
-It reports, per K1 shape:
+K2 runs at the headline's R-round bucket (21,080 nodes × 1,518 × 1,797)
+and at the full cert's whole source (792 nodes × 40,256 × 1,797), each
+unscreened and screened at the median lb, with a SHA-256 of its (ub, lb)
+bytes, so two checkouts' outputs can be compared bit for bit.  The
+rotation bound runs at 2,635 and 21,080 random cubes (a T-round's and the
+largest R-round's count; ``rotation_bound``), with the host's wall per
+call beside the device's.  It
+reports, per K1 shape:
 
 - ``kernel_ms``: the kernel alone, its inputs packed beforehand, through the
   checkout's C entry point (``goicp_nn_query``, or in checkouts without it
@@ -26,8 +33,13 @@ It reports, per K1 shape:
 K1's first two are device time per call (``chip_smoke.device_ms``), the
 rest medians of CUDA events (``chip_smoke.timed_ms``).  ``--routes``
 instead times K1's kernel at each shape on every (target splits, queries
-per thread) route, beside the one ``nn_route`` picks, K5 at every count of
-warps per CTA that fits, and K6 at 1, 2 and 3 points per thread.
+per thread) route, beside the one ``nn_route`` picks, K2 at both shapes
+on both target routes and on schedules of fewer warps in flight (smaller
+grids and CTAs: k, the blocks of a node in flight, falls to 1) beside
+``k2_plan``'s pick, K5 at every count of warps per CTA, K5 at the whole
+source (Np = 40,320) at every count of warps and at the trimmed full
+cert's first subset (Np = 20,224), and K6 at 1, 2 and 3 points per
+thread.
 ``--trace`` then runs ``chip_smoke.py``'s traced trimmed solve on
 ``bound_backend="screen"`` (30 s budget; busy share, device time by
 kernel, K5/K6 launches) with ROOT's package.  The last line printed is
@@ -36,6 +48,7 @@ one JSON object; exits non-zero without CUDA.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -116,11 +129,21 @@ def main() -> int:
             icp_call_ms=smoke.device_ms(call, 100, clock_hz),
             icp_call_host_ms=smoke.timed_ms(call, 50),
         )
+    k2 = k2_cases(smoke, fused, S, T, dev)
     cases = trimmed_cases(smoke, fused, S, T, dev)
     if routes:
+        out["k2_routes"] = k2_routes(smoke, fused, k2)
         out["trimmed_routes"] = trimmed_routes(smoke, fused, cases)
+        out["k5_whole_source"] = k5_whole_source(smoke, fused, S, T, dev)
         print(json.dumps(out), flush=True)
         return 0
+    out["k2"] = {}
+    for key, (srcX, wm, params) in k2.items():
+        ub, lb = fused.bounds_nodes(srcX, wm, params)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(ub.cpu().numpy().tobytes() + lb.cpu().numpy().tobytes()).hexdigest()
+        out["k2"][key] = dict(ms=smoke.timed_ms(lambda: fused.bounds_nodes(srcX, wm, params), 10),
+                              sha256=digest[:16])
     se3_pop = max(64, min(4096, int(32e6 / (8 * S.shape[0]))))        # bnb/se3.py auto
     B = 8 * se3_pop
     Rb, tb, _, _ = smoke.node_batch(rng, B, dev)
@@ -133,6 +156,7 @@ def main() -> int:
         f"64 nodes x {S.shape[0]} x 20000": smoke.timed_ms(lambda: fused.min_d2_nodes(srcT, wm_g, p_g), 5),
     }
     out["trimmed"] = {key: smoke.timed_ms(lambda: trimmed_call(fused, c), 10) for key, c in cases.items()}
+    out["rotation_bound"] = rotation_bound(smoke, dev)
     if trace:
         psrc, ptgt, pR, pt = smoke.load_bunny_partial()
         out["trace"] = smoke.profile_solve(smoke.Checks(), dev, "trimmed screen solve", psrc, ptgt,
@@ -140,6 +164,120 @@ def main() -> int:
                                            bound_backend="screen")
     print(json.dumps(out), flush=True)
     return 0
+
+
+def k2_cases(smoke, fused, S, T, dev):
+    """K2's inputs, by key: (srcT, wm, params), at the headline's largest
+    R-round bucket and at the full cert's whole source, unscreened and
+    screened at the median lb (the same inputs in every checkout)."""
+    import torch
+
+    full = (smoke.bunny_full()[1] * smoke.load_bunny()[4]).astype(np.float32)
+    wm = fused.pack_targets(T)
+    cases = {}
+    for label, src, B in (("headline", S, 21080),
+                          ("whole source", torch.as_tensor(full, device=dev), 792)):
+        rng = np.random.default_rng(7)
+        Rb, tb, af, gt = smoke.node_batch(rng, B, dev)
+        srcX = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+        p_open = fused.pack_params_bounds(Rb, tb, af, gt, 0.0, 1e30)
+        _, lb = fused.bounds_nodes_plain(srcX, wm, p_open)
+        shape = f"{label}: {B} nodes x {src.shape[0]} x {T.shape[0]}"
+        cases[f"{shape} unscreened"] = (srcX, wm, p_open)
+        cases[f"{shape} screened"] = (
+            srcX, wm, fused.pack_params_bounds(Rb, tb, af, gt, 0.0, float(lb.median())))
+    return cases
+
+
+def k2_routes(smoke, fused, cases):
+    """K2 on both target routes and on schedules with fewer warps in flight,
+    beside ``k2_plan``'s pick (this checkout's helpers)."""
+    out = {}
+    for key, (srcX, wm, params) in cases.items():
+        B, Np, Mp = params.shape[0], srcX.shape[1], wm.shape[0]
+        picked = fused.k2_plan(B, Np, Mp)
+        runs = {}
+        for route in ("resident", "ring"):
+            for warps, grid in ((0, 0), (4, 0), (2, 0), (8, 132), (8, 66), (4, 33)):
+                plan = fused.k2_plan(B, Np, Mp, warps, grid, route)
+                ms = smoke.timed_ms(
+                    lambda: fused._k2_kernel(srcX, wm, params, warps, grid, route), 5)
+                runs[f"{route}, {plan['warps']} warps x {plan['grid']} CTAs, k {plan['k']}"] = ms
+        out[key] = dict(picked=picked, ms=runs)
+    return out
+
+
+def k5_whole_source(smoke, fused, S, T, dev):
+    """K5 at the full cert's whole source (Np = 40,320) at every
+    warps-per-CTA count and at its first grown subset (Np = 20,224) at the
+    plan's pick, unscreened and screened (h = 0.75·N)."""
+    import torch
+
+    from goicp_tpu_torch.nn.agree import trim_levels
+
+    full = (smoke.bunny_full()[1] * smoke.load_bunny()[4]).astype(np.float32)
+    wm = fused.pack_targets(T)
+    out = {}
+    for n, warps in ((full.shape[0], range(1, 9)), (20128, (0,))):
+        src = torch.as_tensor(full[:n], device=dev)
+        B = 8 * max(64, min(4096, int(32e6 / (8 * n))))                # bnb/se3.py auto
+        h = int(round(n * (1.0 - smoke.TRIM)))
+        rng = np.random.default_rng(9)
+        Rb, tb, af, gt = smoke.node_batch(rng, B, dev)
+        srcX = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+        p_open = fused.pack_params_bounds_trimmed(Rb, tb, af, gt, 0.0, 1e30, 1e30)
+        _, lb = fused.bounds_nodes_trimmed_plain(srcX, wm, p_open, h=h, drop=n - h)
+        _, te, tau = trim_levels(lb, h, n - h)
+        p_scr = fused.pack_params_bounds_trimmed(Rb, tb, af, gt, 0.0, te, tau)
+        for label, params in (("unscreened", p_open), ("screened", p_scr)):
+            for w in warps:
+                plan = fused.k5_plan(B, srcX.shape[1], wm.shape[0], w)
+                ms = smoke.timed_ms(lambda: fused._k5_kernel(srcX, wm, params, h, n - h, w), 5)
+                out[f"{B} nodes x {n} x {T.shape[0]} {label}, "
+                    f"{plan['warps']} warps x {plan['grid']} CTAs"] = ms
+    return out
+
+
+def rotation_bound(smoke, dev):
+    """The center-aware rotation bound (``geo.rotation.
+    axis_angle_cube_max_angle``) at a T-round's and the largest R-round's
+    cube count of the headline (2,635 and 21,080 cubes): CUDA-event ms and
+    the host's wall of one call waited for, with a SHA-256 of its output;
+    in checkouts that replay it from a CUDA graph, also the eager
+    ``_cube_max_angle``."""
+    import time
+
+    import torch
+
+    from goicp_tpu_torch.geo import rotation
+
+    def host_ms(fn, reps=30):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    eager = getattr(rotation, "_cube_max_angle", None)
+    out = {}
+    for M in (2635, 21080):
+        rng = np.random.default_rng(11)
+        c = torch.as_tensor(rng.uniform(-2.5, 2.5, (M, 3)).astype(np.float32), device=dev)
+        s = torch.as_tensor(rng.uniform(0.005, 0.2, M).astype(np.float32), device=dev)
+        call = lambda: rotation.axis_angle_cube_max_angle(c, s)  # noqa: E731
+        y = call()
+        torch.cuda.synchronize()
+        row = dict(ms=smoke.timed_ms(call, 30), host_ms=host_ms(call),
+                   sha256=hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16])
+        if eager is not None:
+            e = lambda: eager(c, s, 40, 12)  # noqa: E731
+            row.update(eager_ms=smoke.timed_ms(e, 30), eager_host_ms=host_ms(e))
+        out[f"{M} cubes"] = row
+    return out
 
 
 def trimmed_cases(smoke, fused, S, T, dev):

@@ -6,9 +6,12 @@ repo's conftest imports jax, which that machine does not have).
 
 Expected agreement: K1, K3 and K4 round exactly as their plain versions
 (the kernels use non-contracting intrinsics), so indices and distances are
-equal, and K1 keeps the earliest index on every tie, on each of its routes; K2, K5, K6 and K7 reduce their sums in another order, so ub and lb
+equal, and K1 keeps the earliest index on every tie, on each of its
+routes; K2, K5, K6 and K7 reduce their sums in another order, so ub and lb
 agree to rtol 1e-5 / atol 1e-5, and the screened sets may differ only for
-nodes whose lb lies within that tolerance of the threshold.  The trimmed
+nodes whose lb lies within that tolerance of the threshold.  K2 is also
+bit-equal to ``fused.bounds_nodes_kernel_order``, its arithmetic in its own
+summation order, on every launch plan.  The trimmed
 kernels' per-point terms are bit-equal, so their bisection thresholds are
 too; only the final sums differ by order.
 """
@@ -119,27 +122,30 @@ def test_k1_coverage_shape(cuda, n_sub):
     assert bool((d2[hits] == 0).all())
 
 
-def test_k5_limit_refuses_a_trimmed_screen_full_cert(cuda, monkeypatch):
-    """K5 keeps a node's [2, Np] terms in shared memory and refuses a source
-    above ~29,000 points; a trimmed full cert on ``bound_backend="screen"``
-    that would grow its subset past that raises before the first solve."""
+def test_trimmed_screen_full_cert_reaches_the_whole_source(cuda, monkeypatch):
+    """A trimmed full cert on ``bound_backend="screen"`` grows its subset
+    from 20,128 points to the whole 40,256 (K5 at Np = 20,224 and 40,320,
+    each warp's [2, Np] scratch in global memory)."""
     from goicp_tpu_torch.bnb import BnbParams, fullcert
 
-    with pytest.raises(RuntimeError):
-        fused.k5_plan(1, 40320, 1920)
-    assert fused.k5_plan(1, 16384, 1920)["smem"] > 0
-
-    def no_solve(*a, **k):
-        raise AssertionError("reached a solve")
-
-    monkeypatch.setattr(fullcert, "make_solver", no_solve)
     rng = np.random.default_rng(1)
     src = rng.uniform(-0.5, 0.5, (40256, 3)).astype(np.float32)
-    p = BnbParams(trim_fraction=0.25, bound_backend="screen")
-    with pytest.raises(ValueError, match="shared-memory"):
-        fullcert.register_full_cert(src, src[:1797], p, max_refinements=3)
-    with pytest.raises(AssertionError, match="reached a solve"):    # within the limit
-        fullcert.register_full_cert(src, src[:1797], p, max_refinements=0)
+    R = axis_angle_rotation(torch.as_tensor([[0.1, -0.2, 0.05]])).numpy()[0]
+    tgt = (src[np.sort(rng.choice(40256, 1797, replace=False))] @ R.T + 0.02).astype(np.float32)
+    seen = []
+    k5 = fused._k5_kernel
+
+    def spy(srcT_ext, wm, params, *a, **k):
+        seen.append(srcT_ext.shape[1])
+        return k5(srcT_ext, wm, params, *a, **k)
+
+    monkeypatch.setattr(fused, "_k5_kernel", spy)
+    p = BnbParams(trim_fraction=0.25, bound_backend="screen", mse_threshold=1e-9, max_rounds=3,
+                  max_wall_s=5.0)
+    res = fullcert.register_full_cert(src, tgt, p, max_refinements=3)
+    assert res.metrics.counters["fullcert_subset"] == 40256
+    assert 40320 in seen and 20224 in seen
+    assert np.isfinite(res.sse_full) and res.gap_full is not None
 
 
 def _nodes(rng, B, dev):
@@ -186,6 +192,123 @@ def test_k2_bounds_nodes(cuda, B, n, nt, screen):
     torch.cuda.synchronize()
     _agree_screened(ub, lb, *fused.bounds_nodes_plain(srcT, wm, params), thresh, thresh,
                     screen=screen)
+    ub_o, lb_o = fused.bounds_nodes_kernel_order(srcT, wm, params)
+    assert torch.equal(ub, ub_o) and torch.equal(lb, lb_o)
+
+
+def _k2_lb_blocks(srcT, wm, params):
+    """The lb's block sums in K2's summation order, ``[B, nb]``."""
+    tq = fused._pick_tile(srcT.shape[1], fused.TQB)
+    return fused._warp_order_sums(fused._k2_terms(srcT, wm, params)[1], tq)
+
+
+def _k2_boundary_case(rng, B, n, nt, dev):
+    """K2's inputs with a threshold per node that makes its screen fall at a
+    chosen block boundary, by node index mod 6: before the first block
+    (thresh 0), after the first, in the middle, before the last (thresholds
+    halfway into the block that crosses them), after the last (thresh equal
+    to the whole lb: every block runs, ub = 1e30), never.  The nodes lie
+    off the target, so each block adds a positive lb; every seventh point
+    is masked (valid = 0).  Returns (srcT, wm, params, blocks each node must
+    run)."""
+    src, tgt = _cloud(rng, n, dev), _cloud(rng, nt, dev)
+    R, t = _nodes(rng, B, dev)
+    t += 1.0
+    af = torch.as_tensor(rng.uniform(0, 0.3, B).astype(np.float32), device=dev)
+    gt = torch.as_tensor(rng.uniform(0, 0.05, B).astype(np.float32), device=dev)
+    srcT = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+    srcT[4, ::7] = 0.0
+    wm = fused.pack_targets(tgt)
+    params = fused.pack_params_bounds(R, t, af, gt, 0.0, 1e30)
+    blk = _k2_lb_blocks(srcT, wm, params)
+    nb = blk.shape[1]
+    cum = torch.cumsum(blk.double(), 1)
+    rows = torch.arange(B, device=dev)
+    kind = rows % 6
+    at = torch.stack([torch.zeros_like(kind), torch.zeros_like(kind),
+                      torch.full_like(kind, nb // 2), torch.full_like(kind, max(nb - 2, 0)),
+                      torch.full_like(kind, nb - 1), torch.zeros_like(kind)])[kind, rows]
+    thresh = (cum[rows, at] - 0.5 * blk[rows, at].double()).float()
+    _, lb_all = fused.bounds_nodes_kernel_order(srcT, wm, params)
+    thresh = torch.where(kind == 4, lb_all, thresh)
+    thresh = torch.where(kind == 0, torch.zeros_like(thresh), thresh)
+    thresh = torch.where(kind == 5, torch.full_like(thresh, 1e30), thresh)
+    params[:, 15] = thresh
+    runs = torch.where(kind == 0, 0, torch.where(kind == 5, nb, at + 1))
+    return srcT, wm, params, runs
+
+
+# (B, n, nt): nb = 1 (tq 384 and 128), 4 (tq 384 and 256) and 105 blocks
+# (the full cert's whole source), odd B and B below the SM count
+K2_CASES = [(37, 300, 700), (13, 100, 700), (101, 1518, 1797), (21, 1000, 700),
+            (7, 40256, 700)]
+# the plan's pick; one warp in all (k = 1, the serial scan); few CTAs of a
+# few warps; the largest CTA
+K2_SCHEDULES = [dict(), dict(warps=1, grid=1), dict(warps=3, grid=5), dict(warps=8)]
+
+
+@pytest.mark.parametrize("B,n,nt", K2_CASES)
+@pytest.mark.parametrize("sched", range(len(K2_SCHEDULES)))
+@pytest.mark.parametrize("route", ["resident", "ring"])
+def test_k2_plans_and_boundaries(cuda, B, n, nt, sched, route):
+    """K2 on every launch route and schedule, screened at each block
+    boundary: bit-equal to its plain version in the kernel's summation
+    order, within the stated tolerance of the plain version, and every node
+    screened where its threshold puts it."""
+    rng = np.random.default_rng(13)
+    srcT, wm, params, runs = _k2_boundary_case(rng, B, n, nt, cuda)
+    kw = dict(K2_SCHEDULES[sched], route=route)
+    plan = fused.k2_plan(B, srcT.shape[1], wm.shape[0], **kw)
+    assert plan["targets_resident"] == (route == "resident")
+    if "warps" in kw:
+        assert plan["warps"] == kw["warps"]
+    if "grid" in kw:
+        assert plan["grid"] <= kw["grid"]
+    ub, lb = fused._k2_kernel(srcT, wm, params, **kw)
+    torch.cuda.synchronize()
+    ub_o, lb_o = fused.bounds_nodes_kernel_order(srcT, wm, params)
+    assert torch.equal(ub, ub_o) and torch.equal(lb, lb_o)
+    blk = _k2_lb_blocks(srcT, wm, params)
+    _, _, blocks = fused.screen_scan(blk, blk, params[:, 15])
+    assert torch.equal(blocks, runs)
+    th = params[:, 15]
+    assert torch.equal(ub == 1e30, th < 1e29)
+    _agree_per_node(ub, lb, *fused.bounds_nodes_plain(srcT, wm, params), th)
+
+
+def _agree_per_node(ub, lb, ub_p, lb_p, th):
+    """``nn/agree.py``'s rule with a threshold per node: the screened sets
+    may differ only where the lb lies within 1e-5 + 1e-5·|thresh| of the
+    node's threshold; elsewhere ub and lb agree to 1e-5 + 1e-5·|ref|."""
+    scr, scr_p = ub >= 1e29, ub_p >= 1e29
+    differ = scr != scr_p
+    near = (torch.where(scr, lb, lb_p) - th).abs() <= 1e-5 * th.abs() + 1e-5
+    assert bool(near[differ].all())
+    same = ~differ
+    torch.testing.assert_close(ub[same], ub_p[same], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lb[same], lb_p[same], rtol=1e-5, atol=1e-5)
+
+
+# above the 6,144 resident targets (the ring) and at mxu_max
+@pytest.mark.parametrize("nt", [6145, 8000, 32768])
+@pytest.mark.parametrize("sched", [0, 2])
+def test_k2_ring_route(cuda, nt, sched):
+    rng = np.random.default_rng(14)
+    srcT, wm, params, runs = _k2_boundary_case(rng, 12, 1518, nt, cuda)
+    assert not fused.k2_plan(12, srcT.shape[1], wm.shape[0])["targets_resident"]
+    ub, lb = fused._k2_kernel(srcT, wm, params, **K2_SCHEDULES[sched])
+    torch.cuda.synchronize()
+    ub_o, lb_o = fused.bounds_nodes_kernel_order(srcT, wm, params)
+    assert torch.equal(ub, ub_o) and torch.equal(lb, lb_o)
+
+
+def test_k2_plan_k(cuda):
+    """One block of a node in flight at the R-round bucket; several at the
+    full cert's whole source."""
+    head = fused.k2_plan(21080, 1536, 1920)
+    whole = fused.k2_plan(792, 40320, 1920)
+    assert head["k"] == 1 and head["targets_resident"] and head["points_per_lane"] == 12
+    assert whole["k"] > 1 and whole["blocks"] == 105
 
 
 def _agree_screened(ub, lb, ub_p, lb_p, thresh, scale, group=1, screen=False):
@@ -367,6 +490,62 @@ def test_k5_shapes(cuda, B, n, nt, mode):
                    fused.bounds_nodes_trimmed_plain, args, h, n - h, mode)
 
 
+# the same inputs at every count of warps per CTA: a node's result is its
+# warp's alone, whatever warp of which CTA takes it and wherever its slot of
+# the global scratch lies, so the bits are equal
+@pytest.mark.parametrize("B,n,nt", [(37, 100, 700), (1001, 1000, 1797), (37, 8192, 1797),
+                                    (16, 1518, 20000)])
+@pytest.mark.parametrize("mode", ["open", "screen"])
+def test_k5_warps(cuda, B, n, nt, mode):
+    rng = np.random.default_rng(15)
+    src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
+    R, t = _nodes(rng, B, cuda)
+    t[::2] += 1.5
+    af = torch.as_tensor(rng.uniform(0, 0.3, B).astype(np.float32), device=cuda)
+    gt = torch.as_tensor(rng.uniform(0, 0.05, B).astype(np.float32), device=cuda)
+    srcT = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+    wm = fused.pack_targets(tgt)
+    h = int(round(0.75 * n))
+    Np, Mp = srcT.shape[1], wm.shape[0]
+    picked = fused.k5_plan(B, Np, Mp)["warps"]
+    assert all(fused.k5_plan(B, Np, Mp, w)["warps"] == w for w in range(1, 9))
+
+    def args(te, tau):
+        return srcT, wm, fused.pack_params_bounds_trimmed(R, t, af, gt, 0.0, te, tau)
+
+    _, te, tau = _trimmed_levels(fused.bounds_nodes_trimmed_plain, args, h, n - h, mode)
+    ref = fused._k5_kernel(*args(te, tau), h, n - h)
+    for w in range(1, 9):
+        out = fused._k5_kernel(*args(te, tau), h, n - h, w)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), (w, picked)
+    _trimmed_agree(lambda *a: fused._k5_kernel(*a, h, n - h, 1),
+                   fused.bounds_nodes_trimmed_plain, args, h, n - h, mode)
+
+
+# the trimmed full cert's whole source: Np = 40,320, 315 KB of scratch a warp
+@pytest.mark.parametrize("mode", ["open", "screen", "masked"])
+def test_k5_global_scratch_whole_source(cuda, mode):
+    rng = np.random.default_rng(16)
+    n, nt, B = 40256, 1797, 24
+    src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
+    R, t = _nodes(rng, B, cuda)
+    t[::2] += 1.5
+    af = torch.as_tensor(rng.uniform(0, 0.3, B).astype(np.float32), device=cuda)
+    gt = torch.as_tensor(rng.uniform(0, 0.05, B).astype(np.float32), device=cuda)
+    srcT = fused.pack_sources_ext(src, torch.linalg.vector_norm(src, dim=1))
+    wm = fused.pack_targets(tgt)
+    plan = fused.k5_plan(B, srcT.shape[1], wm.shape[0])
+    assert plan["targets_resident"]
+    h = int(round(0.75 * n))
+
+    def args(te, tau):
+        return srcT, wm, fused.pack_params_bounds_trimmed(R, t, af, gt, 0.0, te, tau)
+
+    _trimmed_agree(lambda *a: fused.bounds_nodes_trimmed(*a, h=h, drop=n - h),
+                   fused.bounds_nodes_trimmed_plain, args, h, n - h, mode)
+
+
 # h close to N and h small, on a source of duplicated points.  At h = 5 a
 # screened lb = Σl̃ - drop·τ (τ = 2·thresh/h) cancels ~2N/h-fold, so its
 # reduction-order error outgrows the rtol: h = 5 runs unscreened and
@@ -454,3 +633,23 @@ def test_trimmed_routes(cuda, route):
         plain, group = fused.bounds_groups_trimmed_plain, 8
     for mode in ("open", "screen"):
         _trimmed_agree(kernel, plain, args, h, n - h, mode, group=group)
+
+
+# the rotation bound's emulated libm arithmetic (tests/test_torch_rotation.py
+# holds the CPU path to the jitted JAX function) gives the same bits on the
+# card, eagerly and replayed from its CUDA graph, at two cube counts and on
+# new inputs to a graph already captured
+@pytest.mark.parametrize("M", [100_000, 2635])
+def test_cube_angle_bound_card_equals_cpu(cuda, M):
+    from goicp_tpu_torch.geo import rotation
+
+    rng = np.random.default_rng(22)
+    for _ in range(2):
+        c = rng.uniform(-np.pi, np.pi, (3 * M, 3)).astype(np.float32)
+        c = c[np.linalg.norm(c, axis=1) <= np.pi][:M]
+        s = (np.pi / 2.0 ** rng.integers(1, 11, M)).astype(np.float32)
+        ref = rotation.axis_angle_cube_max_angle(torch.from_numpy(c), torch.from_numpy(s))
+        c_d, s_d = torch.as_tensor(c, device=cuda), torch.as_tensor(s, device=cuda)
+        got = rotation.axis_angle_cube_max_angle(c_d, s_d)
+        eager = rotation._cube_max_angle(c_d, s_d, 40, 12)
+        assert torch.equal(got.cpu(), ref) and torch.equal(eager.cpu(), ref)

@@ -180,6 +180,52 @@ def test_bounds_nodes_k2_plain_matches_jax(scene, screen):
     assert np.all(ub_t[scr_t] == 1e30)
 
 
+def test_bounds_nodes_k2_plain_matches_jax_long_nodes():
+    """K2's plain version against the interpreted JAX kernel with nb = 10
+    point blocks a node (Np = 3,840, tq = 384; 500 targets), thresholds per
+    node at a chosen block boundary: after the first block, in the middle,
+    before the last, after the last (every block runs), and never.  The
+    screened sets and the blocks each node ran are equal; ub and lb agree
+    to rtol 1e-5 + atol 1e-5."""
+    rng = np.random.default_rng(77)
+    n, nt, nodes = 3840, 500, 8
+    src = (rng.random((n, 3)).astype(np.float32) - 0.5) * 0.6
+    tgt = (rng.random((nt, 3)).astype(np.float32) - 0.5) * 0.6
+    R = _rot(rng, nodes)
+    t = (0.6 + (rng.random((nodes, 3)) - 0.5) * 0.2).astype(np.float32)   # off the target
+    norms = np.linalg.norm(src, axis=1).astype(np.float32)
+    af = rng.uniform(0.0, 0.2, nodes).astype(np.float32)
+    gt = rng.uniform(0.0, 0.02, nodes).astype(np.float32)
+    srcT_t = fused.pack_sources_ext(src, norms)
+    wm_t = fused.pack_targets(tgt)
+    p_open = fused.pack_params_bounds(R, t, af, gt, 0.0, 1e30)
+    _, lb_blk = fused.bounds_block_sums_plain(srcT_t, wm_t, p_open)
+    nb = lb_blk.shape[1]
+    assert nb == 10
+    cum = torch.cumsum(lb_blk.double(), 1)
+    at = [0, nb // 2, nb - 2, nb - 1, 0, nb // 2, nb - 2, None]     # None: never screened
+    thresh = np.array([1e30 if j is None else
+                       float(cum[i, j] - (0.5 * lb_blk[i, j] if j < nb - 1 else 0.0))
+                       for i, j in enumerate(at)], np.float32)
+    thresh[3] = thresh[3] * (1.0 - 1e-3)         # after the last block: crossed there
+    pj = np.array(mxu.pack_params_bounds(R, t, af, gt, 0.0, 1e30))
+    pj[:, 15] = thresh
+    ub_j, lb_j = (_np(x) for x in mxu.bounds_nodes(
+        mxu.pack_sources_ext(src, norms), mxu.pack_targets(tgt), pj, interpret=True))
+    pt = p_open.clone()
+    pt[:, 15] = torch.from_numpy(thresh)
+    ub_t, lb_t = fused.bounds_nodes(srcT_t, wm_t, pt)
+    ub_blk, lb_blk2 = fused.bounds_block_sums_plain(srcT_t, wm_t, pt)
+    _, _, blocks = fused.screen_scan(ub_blk, lb_blk2, pt[:, 15])
+    want = [1 if j is None else j + 1 for j in at[:-1]] + [nb]
+    assert blocks.tolist() == want
+    scr_j, scr_t = lb_j >= thresh, lb_t.numpy() >= thresh
+    assert np.array_equal(scr_j, scr_t) and scr_t.tolist() == [True] * 7 + [False]
+    np.testing.assert_allclose(lb_t.numpy(), lb_j, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ub_t.numpy(), ub_j, rtol=1e-5, atol=1e-5)
+    assert np.all(ub_t.numpy()[scr_t] == 1e30) and ub_t[7] < 1e29
+
+
 def test_wrappers_reject_mixed_devices(scene):
     s = scene
     srcT = fused.pack_sources(s["src"])
