@@ -75,6 +75,27 @@ Phases, each of which fails the run:
    certs untrimmed and trimmed, a nested solve, and a snapshot written on
    the card resumed on both.
 
+9. lockstep multipair and the registration service: K4 at one pair's
+   lockstep round (4,096 nodes × the source's 1,536-point pack × 1,797
+   targets) and K1 at the lockstep refine (4 pairs × 8 poses × 1,518
+   queries × 1,797 targets) against their plain versions; 9a
+   ``register_pairs`` on four rotated copies of the headline source
+   against the one headline target, default ``BnbParams``, phase 4's
+   ``mse_threshold``, 30 s budget (K4 and K1 must launch, K2 and K3 must
+   not; each pair's rounds, nodes, nodes/s, gap and pose, beside phase 4's
+   solo nodes/s), then 10 s more synchronised around each round's bounds
+   and refine for their share of the wall; 9b a ``RegistrationService``
+   on the headline target through ``serve_stdio`` (a goicp batch, a tracking query, an
+   escalation, ``info`` naming the card) and ``serve_tcp`` on 127.0.0.1
+   (a client without the auth token refused; four authenticated clients'
+   goicp queries in one Batcher batch, then a tracking query each; a lone
+   query of a service without shape buckets on the single-pair solver,
+   whose rounds run on the Batcher's thread, 5 s budget), every pose
+   within the limits; 9c three 300-point pairs in lockstep on the
+   card and on the CPU path's K4 form: equal rounds, nodes and converged
+   flags, one ``_pairs_round`` bit-equal in ub and lb, untrimmed and
+   trimmed.
+
 ``python3 chip_smoke.py --witness`` builds the kernels and runs only 7b's
 point-metric TOMLs, on the port's CPU path and on the card (minutes on the
 CPU), for ``CPU_WITNESS``.
@@ -1881,6 +1902,398 @@ def phase_8d(chk, dev, psrc, ptgt, pR, pt):
     return out
 
 
+LOCKSTEP_PAIRS = 4              # 9a: pairs in the lockstep batch
+LOCKSTEP_WALL_S = 30.0          # 9a: BnB budget of the lockstep
+LOCKSTEP_BREAKDOWN_S = 10.0     # 9a: BnB budget of the synchronised rerun (the breakdown)
+SERVE_WALL_S = 10.0             # 9b: BnB budget of each service query
+SERVE_QUERY_N = 1000            # 9b: points in each service query (a target subset)
+SERVE_SOLO_WALL_S = 5.0         # 9b: BnB budget of the query on the single-pair solver
+AGREE_ROUNDS = 15               # 9c: rounds of the card-vs-CPU lockstep solves
+
+
+def lockstep_pairs(src, tgt, R_gt, n_pairs, seed):
+    """``n_pairs`` pairs of the source rotated by seeded random rotations
+    Q_i, each against the one target array (the serving shape), and their
+    ground truths (R_gt Q_iᵀ, t)."""
+    from goicp_tpu_torch.geo.rotation import random_rotations
+
+    Qs = random_rotations(n_pairs, np.random.default_rng(seed))
+    pairs = [((src @ Q.T).astype(np.float32), tgt) for Q in Qs]
+    return pairs, [(R_gt @ Q.T).astype(np.float32) for Q in Qs]
+
+
+def check_lockstep_kernels(chk, dev, S, T, rng, clock_hz, P, k, B):
+    """K4 at one pair's lockstep round (``B`` nodes, the source's 1,536-point
+    pack, the headline's targets) and K1 at the lockstep refine (``P`` pairs
+    × ``k`` poses × the source against the shared target), each against its
+    plain version (tol 0), with kernel, plain, library and bound times."""
+    import torch
+
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation
+    from goicp_tpu_torch.nn import fused
+    from goicp_tpu_torch.nn.brute import nearest_neighbor
+
+    rec4 = check_k4(chk, dev, S, T, rng, clock_hz, B)
+    rec4.update(name=f"K4 lockstep min_d2_nodes, one pair's round: {B} nodes x "
+                     f"{S.shape[0]} points x {T.shape[0]} targets",
+                replaces="goicp_tpu/nn/mxu.py:176 (via min_d2_nodes :361, "
+                         "multipair_lockstep.py:113-116)")
+    N, NT = S.shape[0], T.shape[0]
+    Rp = axis_angle_rotation(torch.as_tensor(
+        rng.uniform(-0.2, 0.2, (P * k, 3)).astype(np.float32), device=dev))
+    tp = torch.as_tensor(rng.uniform(-0.02, 0.02, (P * k, 3)).astype(np.float32), device=dev)
+    Q = (S[None] @ Rp.transpose(1, 2) + tp[:, None]).reshape(-1, 3).contiguous()
+    t4 = fused.pack_nn_targets(T)
+    d2, idx = fused.nearest_neighbor_mxu(Q, T, packed=t4)
+    torch.cuda.synchronize()
+    d2_p, idx_p = nearest_neighbor(Q, T)
+    err = float((d2 - d2_p).abs().max())
+    chk.expect(bool(torch.equal(idx, idx_p)) and bool(torch.equal(d2, d2_p)),
+               f"K1 lockstep {P}x{k}x{N} queries x {NT} targets: indices equal, max |d2 err| "
+               f"{err:.3g} (tol 0: bit-equal)")
+    ms = device_ms(lambda: fused.nearest_neighbor_mxu(Q, T, packed=t4), 100, clock_hz)
+    plain = device_ms(lambda: nearest_neighbor(Q, T), 5, clock_hz)
+    lib = device_ms(lambda: torch.cdist(Q, T).min(dim=1), 20, clock_hz)
+    nq = Q.shape[0]
+    b, by = bound_ms(4.0 * (3 * nq + 3 * NT + 2 * nq), 7.0 * nq * NT, clock_hz)
+    route = fused.nn_route(nq, t4.shape[0], fused._sm_count(Q.device.index))
+    rec1 = _rec(f"K1 lockstep nearest_neighbor_mxu (the lockstep refine), {P} pairs x {k} poses "
+                f"x {N} queries x {NT} targets", "goicp_tpu_torch/csrc/nn_min_d2.cu",
+                "goicp_tpu/nn/mxu.py:152", err, ms, plain, b, by, lib,
+                f"{nq} queries x {NT} targets", library_call="torch.cdist + min (two calls)",
+                shape_key=[nq, NT], launch_route=dict(splits=route[0], queries_per_thread=route[1],
+                                                      targets_resident=t4.shape[0] <= K1_RESIDENT_MAX),
+                timing="device time per call (device_ms), targets packed once")
+    report("K4 lockstep", rec4)
+    report("K1 lockstep", rec1)
+    return rec4, rec1
+
+
+def phase_9a(chk, dev, src, tgt, R_gt, t_gt, solo):
+    """9a: ``register_pairs`` on LOCKSTEP_PAIRS rotated copies of the
+    headline source against the one headline target, default ``BnbParams``
+    with phase 4's ``mse_threshold`` and a LOCKSTEP_WALL_S budget.  K4 and K1
+    must launch, K2 and K3 must not; every pose within the limits; the
+    lockstep's nodes/s beside phase 4's solo rate."""
+    import torch
+
+    from goicp_tpu_torch import register_pairs
+    from goicp_tpu_torch.nn import fused
+
+    pairs, R_gts = lockstep_pairs(src, tgt, R_gt, LOCKSTEP_PAIRS, 91)
+    params, mse_true = solve_params(dev, src, tgt, R_gt, t_gt, max_wall_s=LOCKSTEP_WALL_S)
+    extent = float(np.linalg.norm(tgt.max(0) - tgt.min(0)))
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = register_pairs(pairs, params, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fused.launches)
+    per_pair = []
+    for b, (r, Rg) in enumerate(zip(res, R_gts)):
+        rot_err, t_err = pose_limits(chk, f"9a pair {b}", r.transform.R, r.transform.t, Rg,
+                                     t_gt, extent)
+        per_pair.append(dict(rounds=r.rounds, nodes=r.rot_nodes,
+                             nodes_per_s=r.rot_nodes / r.wall_s, gap=r.gap,
+                             converged=bool(r.converged), mse=r.mse, icp_iters=r.icp_iters,
+                             rot_err_deg=rot_err, t_err_over_extent=t_err / extent))
+    nodes = sum(r.rot_nodes for r in res)
+    info = dict(pairs=len(pairs), mse_threshold=params.mse_threshold, mse_true=mse_true,
+                max_wall_s=params.max_wall_s, wall_s=wall, lockstep_wall_s=res[0].wall_s,
+                rounds=res[0].rounds, nodes=nodes, nodes_per_s=nodes / res[0].wall_s,
+                per_pair=per_pair, solo_nodes_per_s=solo["nodes_per_s"],
+                per_pair_over_solo=[q["nodes_per_s"] / solo["nodes_per_s"] for q in per_pair],
+                all_pairs_over_solo=nodes / res[0].wall_s / solo["nodes_per_s"],
+                launches=launches,
+                k1_launches_by_shape={f"{q}x{t}": n
+                                      for (q, t), n in sorted(fused.nn_launch_shapes.items())})
+    print("9a lockstep: " + json.dumps({k: info[k] for k in (
+        "wall_s", "rounds", "nodes", "nodes_per_s", "solo_nodes_per_s", "all_pairs_over_solo",
+        "per_pair", "launches")}), flush=True)
+    for k in ("min_d2_nodes", "nearest_neighbor_mxu"):
+        chk.expect(launches[k] > 0, f"9a lockstep launched {k} {launches[k]} times")
+    for k in ("bounds_nodes", "min_d2_groups"):
+        chk.expect(launches[k] == 0, f"9a lockstep launched {k} {launches[k]} times (none)")
+    info["breakdown"] = lockstep_breakdown(dev, pairs, params)
+    return info
+
+
+def lockstep_breakdown(dev, pairs, params):
+    """9a once more on a LOCKSTEP_BREAKDOWN_S budget, the card synchronised
+    around each round's bounds (``_pairs_bounds``: K4 and the epilogue of
+    every live pair) and refine (``_pairs_refine``: the batched ICP): their
+    wall per round and share of the lockstep's wall; the rest is the host's
+    (pops, expansion, absorption) and the multistart."""
+    import dataclasses
+
+    from goicp_tpu_torch import multipair_lockstep as ml
+    from goicp_tpu_torch import register_pairs
+    from goicp_tpu_torch.nn import fused
+
+    spies = {k: Spy(ml, k) for k in ("_pairs_bounds", "_pairs_refine")}
+    fused.reset_launch_counts()
+    try:
+        res = register_pairs(pairs, dataclasses.replace(params, max_wall_s=LOCKSTEP_BREAKDOWN_S),
+                             device=dev)
+    finally:
+        for spy in spies.values():
+            spy.restore()
+    wall, rounds = res[0].wall_s, res[0].rounds
+    out = dict(max_wall_s=LOCKSTEP_BREAKDOWN_S, wall_s=wall, rounds=rounds,
+               k1_launches_per_round=fused.launches["nearest_neighbor_mxu"] / max(rounds, 1))
+    for k, spy in spies.items():
+        tot = sum(c[0] for c in spy.calls)
+        out[k] = dict(calls=len(spy.calls), s=tot, ms_per_round=1e3 * tot / max(rounds, 1),
+                      share=tot / wall)
+    out["rest_share"] = 1.0 - sum(out[k]["share"] for k in spies)
+    print("9a breakdown: " + json.dumps(out), flush=True)
+    return out
+
+
+def _tcp_session(service, token, lines_by_client, window_s):
+    """``serve_tcp`` on 127.0.0.1 with ``token``: one client without the
+    handshake (refused), then one authenticated client per entry of
+    ``lines_by_client``, all sending at once after the handshake, then a
+    shutdown.  Returns (the refusal, each client's answers, the Batcher)."""
+    import socket
+    import threading
+
+    from goicp_tpu_torch.serving.tcp import serve_tcp
+
+    ready, bound, out = threading.Event(), [], {}
+    srv = threading.Thread(target=lambda: out.setdefault("batcher", serve_tcp(
+        service, port=0, max_batch=len(lines_by_client), window_s=window_s, ready=ready,
+        bound=bound, auth_token=token)), daemon=True)
+    srv.start()
+    if not ready.wait(60):
+        raise RuntimeError("serve_tcp did not start")
+
+    def conn():
+        s = socket.create_connection(("127.0.0.1", bound[0]), timeout=600)
+        return s, s.makefile("rw")
+
+    s, f = conn()
+    f.write(json.dumps({"id": "no-auth", "cmd": "info"}) + "\n")
+    f.flush()
+    refused = json.loads(f.readline())
+    refused["closed"] = f.readline() == ""
+    s.close()
+    go = threading.Barrier(len(lines_by_client))
+    answers = [None] * len(lines_by_client)
+
+    def client(i):
+        s, f = conn()
+        f.write(json.dumps({"auth": token}) + "\n")
+        f.flush()
+        json.loads(f.readline())
+        go.wait()
+        got = []
+        for line in lines_by_client[i]:
+            f.write(json.dumps(line) + "\n")
+            f.flush()
+            got.append(json.loads(f.readline()))
+        answers[i] = got
+        s.close()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(lines_by_client))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    s, f = conn()
+    f.write(json.dumps({"auth": token}) + "\n")
+    f.write(json.dumps({"cmd": "shutdown"}) + "\n")
+    f.flush()
+    f.readline()
+    f.readline()
+    s.close()
+    srv.join(60)
+    return refused, answers, out.get("batcher")
+
+
+def phase_9b(chk, dev, tgt):
+    """9b: a ``RegistrationService`` on the headline target, driven through
+    ``serve_stdio`` (a goicp batch, an icp tracking query, an escalation,
+    ``info``) and ``serve_tcp`` (a refused client without the token, then
+    four authenticated clients whose goicp queries must land in one
+    Batcher batch, and a tracking query each; then a lone query on the
+    single-pair solver, run from the Batcher's thread).  Queries are
+    rigidly moved SERVE_QUERY_N-point subsets of the target; every
+    answer's pose within the limits."""
+    import io
+
+    import torch
+
+    from goicp_tpu_torch import BnbParams
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation, random_rotations
+    from goicp_tpu_torch.nn import fused
+    from goicp_tpu_torch.serve import RegistrationService, serve_stdio
+
+    rng = np.random.default_rng(92)
+    extent = float(np.linalg.norm(tgt.max(0) - tgt.min(0)))
+    t0 = time.perf_counter()
+    svc = RegistrationService(tgt, BnbParams(mse_threshold=1e-5, max_wall_s=SERVE_WALL_S),
+                              name="bunny", device=dev)
+    build_s = time.perf_counter() - t0
+
+    def query(i):
+        Q = random_rotations(1, np.random.default_rng(900 + i))[0]
+        t = (rng.random(3).astype(np.float32) - 0.5) * 0.3
+        idx = np.sort(rng.choice(tgt.shape[0], SERVE_QUERY_N, replace=False))
+        return ((tgt[idx] - t) @ Q).astype(np.float32), Q, t
+
+    def near(Q, t):
+        dR = axis_angle_rotation(torch.as_tensor(rng.normal(0, 0.03, 3).astype(np.float32))).numpy()
+        return {"R": (dR @ Q).tolist(), "t": (t + 0.01).tolist()}
+
+    qs = [query(i) for i in range(6)]
+    checks = []
+
+    def hold(label, resp, Q, t, escalated=None):
+        ok = bool(resp.get("ok"))
+        chk.expect(ok, f"9b {label}: answered ok ({resp.get('error', '')})")
+        if ok:
+            pose_limits(chk, f"9b {label}", np.asarray(resp["R"], np.float32),
+                        np.asarray(resp["t"], np.float32), Q, t, extent)
+            checks.append(dict(label=label, nodes=resp["nodes"], icp_iters=resp["icp_iters"],
+                               converged=resp["converged"], wall_s=resp["wall_s"],
+                               escalated=resp.get("escalated", False)))
+        if escalated is not None:
+            chk.expect(resp.get("escalated", False) == escalated,
+                       f"9b {label}: escalated {resp.get('escalated', False)} ({escalated})")
+
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    lines = [
+        {"batch": [{"id": f"g{i}", "points": qs[i][0].tolist()} for i in range(3)]},
+        {"id": "track", "points": qs[3][0].tolist(), "mode": "icp", "init": near(*qs[3][1:])},
+        {"id": "lost", "points": qs[4][0].tolist(), "mode": "icp",
+         "init": {"R": np.eye(3).tolist(), "t": [0.0, 0.0, 0.0]}, "escalate_mse": 1e-4},
+        {"cmd": "info"},
+        {"cmd": "shutdown"},
+    ]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    serve_stdio(svc, io.StringIO("\n".join(json.dumps(x) for x in lines) + "\n"), out)
+    stdio_s = time.perf_counter() - t0
+    resp = [json.loads(x) for x in out.getvalue().splitlines()]
+    for i in range(3):
+        hold(f"stdio goicp g{i}", resp[i], *qs[i][1:])
+    hold("stdio icp track", resp[3], *qs[3][1:], escalated=False)
+    hold("stdio icp lost", resp[4], *qs[4][1:], escalated=True)
+    info = resp[5]
+    chk.expect(info.get("devices") == [torch.cuda.get_device_name(0)],
+               f"9b info names the card: {info.get('devices')}")
+    stdio_launches = dict(fused.launches)
+
+    fused.reset_launch_counts()
+    tcp_lines = [[{"id": f"c{i}", "points": q[0].tolist()},
+                  {"id": f"c{i}-track", "points": q[0].tolist(), "mode": "icp",
+                   "init": near(*q[1:])}]
+                 for i, q in enumerate(qs[:3] + qs[5:6])]
+    t0 = time.perf_counter()
+    refused, answers, batcher = _tcp_session(svc, "smoke-token", tcp_lines, window_s=0.5)
+    tcp_s = time.perf_counter() - t0
+    chk.expect(not refused.get("ok") and "auth" in refused.get("error", "") and refused["closed"],
+               f"9b tcp: a client without the token refused and closed ({refused})")
+    for i, (q, got) in enumerate(zip(qs[:3] + qs[5:6], answers)):
+        if got is None:
+            chk.expect(False, f"9b tcp client {i} answered")
+            continue
+        hold(f"tcp goicp c{i}", got[0], *q[1:])
+        hold(f"tcp icp c{i}", got[1], *q[1:])
+    batches = list(batcher.batches) if batcher is not None else []
+    chk.expect(4 in batches, f"9b tcp: the four goicp queries in one Batcher batch (batches "
+                             f"{batches})")
+    tcp_launches = dict(fused.launches)
+
+    # a lone query of a service without shape buckets leaves the lockstep
+    # for the single-pair solver, on the Batcher's thread: its rounds replay
+    # the rotation bound's CUDA graph there.  The query carries noise 0.003
+    # and the threshold sits below its mse, so the BnB runs its budget.
+    solo = RegistrationService(tgt, BnbParams(mse_threshold=1e-6, max_wall_s=SERVE_SOLO_WALL_S),
+                               name="bunny-solo", bucket_shapes=False, device=dev)
+    src, Q, t = qs[0]
+    noisy = (src + rng.normal(0, 0.003, src.shape)).astype(np.float32)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, answers, _ = _tcp_session(solo, "smoke-token", [[{"id": "solo",
+                                                           "points": noisy.tolist()}]], 0.05)
+    solo_s = time.perf_counter() - t0
+    got = answers[0][0] if answers[0] else {}
+    hold("tcp single-pair solver", got, Q, t)
+    chk.expect(got.get("nodes", 0) > 0 and fused.launches["bounds_nodes"] > 0,
+               f"9b tcp single-pair solver ran its rounds on the Batcher's thread: nodes "
+               f"{got.get('nodes')}, K2 launches {fused.launches['bounds_nodes']}")
+    return dict(build_s=build_s, stdio_s=stdio_s, tcp_s=tcp_s, solo_s=solo_s, answers=checks,
+                info=info, batches=batches, stdio_launches=stdio_launches,
+                tcp_launches=tcp_launches, solo_launches=dict(fused.launches), refused=refused)
+
+
+def phase_9c(chk, dev, src, tgt, R_gt, t_gt):
+    """9c: three 300-point pairs in lockstep on the card (K4) and on the CPU
+    path's K4 form (K4's plain version): equal rounds, nodes and converged
+    flags per pair, and one ``_pairs_round`` bit-equal in ub and lb;
+    untrimmed and trimmed (0.25)."""
+    import torch
+
+    from goicp_tpu_torch import multipair_lockstep as ml
+    from goicp_tpu_torch.geo.rotation import random_rotations
+    from goicp_tpu_torch.icp import IcpParams
+
+    rng = np.random.default_rng(93)
+    s = src[np.sort(rng.choice(src.shape[0], 300, replace=False))]
+    t = tgt[np.sort(rng.choice(tgt.shape[0], 300, replace=False))]
+    pairs, _ = lockstep_pairs(s, t, R_gt, 3, 94)
+    out = {}
+    for label, trim in (("untrimmed", 0.0), ("trimmed", TRIM)):
+        params, _ = solve_params(dev, s, t, R_gt, t_gt, trim, se3_pop=64, init_multistart=8,
+                                 refine_top_k=2, max_rounds=AGREE_ROUNDS, max_wall_s=1e9)
+        rg = ml._register_pairs_lockstep(pairs, params, device=dev)
+        rc = ml._register_pairs_lockstep(pairs, params, device="cpu", use_kernel=True)
+        same = all((a.rounds, a.rot_nodes, a.converged) == (b.rounds, b.rot_nodes, b.converged)
+                   for a, b in zip(rg, rc))
+        chk.expect(same, f"9c {label} lockstep card vs CPU (K4 form): (rounds, nodes, converged) "
+                         f"{[(r.rounds, r.rot_nodes, r.converged) for r in rg]} vs "
+                         f"{[(r.rounds, r.rot_nodes, r.converged) for r in rc]}")
+        M = 512
+        Rn = random_rotations(3 * M, rng).reshape(3, M, 3, 3)
+        ang = rng.uniform(0.01, 1.0, (3, M)).astype(np.float32)
+        t_c = rng.uniform(-0.1, 0.1, (3, M, 3)).astype(np.float32)
+        t_s = rng.uniform(0.005, 0.1, (3, M)).astype(np.float32)
+        mask = np.ones((3, M), bool)
+        mask[2, 300:] = False
+        h = np.array([max(1, round(300 * (1 - trim)))] * 3, np.float64)
+        bounds = []
+        for d in (dev, torch.device("cpu")):
+            batch = ml._PairBatch(pairs, 300, d)
+            bounds.append([x.cpu() for x in ml._pairs_round(
+                batch, 0.0, Rn, ang, t_c, t_s, mask, h, np.full(3, 2.0, np.float32),
+                refine_k=2, icp_params=IcpParams(max_iter=32, rel_tol=1e-4, trim_fraction=trim),
+                trim=trim > 0, use_kernel=True)[:2]])
+        eq = all(bool(torch.equal(a, b)) for a, b in zip(*bounds))
+        chk.expect(eq, f"9c {label} _pairs_round card vs CPU: ub and lb bit-equal")
+        out[label] = dict(card=[(r.rounds, r.rot_nodes, r.converged, r.sse) for r in rg],
+                          cpu=[(r.rounds, r.rot_nodes, r.converged, r.sse) for r in rc],
+                          round_bit_equal=eq)
+    return out
+
+
+def lockstep_phase(chk, dev, src, tgt, R_gt, t_gt, solo, clock_hz):
+    """Phase 9: K4 and K1 at the lockstep's shapes, then 9a-9c.  Returns
+    the records, with the two kernel rows under "kernels"."""
+    import torch
+
+    S, T = torch.as_tensor(src, device=dev), torch.as_tensor(tgt, device=dev)
+    out = {"kernels": check_lockstep_kernels(chk, dev, S, T, np.random.default_rng(95),
+                                             clock_hz, LOCKSTEP_PAIRS, 8, 4096)}
+    out["9a"] = phase_9a(chk, dev, src, tgt, R_gt, t_gt, solo)
+    out["9b"] = phase_9b(chk, dev, tgt)
+    out["9c"] = phase_9c(chk, dev, src, tgt, R_gt, t_gt)
+    return out
+
+
 # (key, launch counter, the phase whose solve is the kernel's main path);
 # K1 has a row per shape (k1_shapes) and counts that shape's launches
 KERNELS = (
@@ -1898,6 +2311,8 @@ KERNELS = (
     ("K5 full cert", "bounds_nodes_trimmed", "trimmed screen full cert"),
     ("K6", "bounds_groups_trimmed", "trimmed screen solve"),
     ("K7", "bounds_groups", None),
+    ("K4 lockstep", "min_d2_nodes", "lockstep"),
+    ("K1 lockstep", "nearest_neighbor_mxu", "lockstep"),
 )
 
 
@@ -1970,6 +2385,12 @@ def main() -> int:
         phases[k] = fc_out[k]
     fc_out["phase_s"] = time.perf_counter() - t8
     print(f"phase 8: {fc_out['phase_s']:.1f} s", flush=True)
+    t9 = time.perf_counter()
+    ls_out = lockstep_phase(chk, dev, src, tgt, R_gt, t_gt, phases["solve"], clock_mhz * 1e6)
+    recs["K4 lockstep"], recs["K1 lockstep"] = ls_out.pop("kernels")
+    phases["lockstep"] = ls_out["9a"]
+    ls_out["phase_s"] = time.perf_counter() - t9
+    print(f"phase 9: {ls_out['phase_s']:.1f} s", flush=True)
     prof = None
     if "--profile" in sys.argv[1:]:
         prof = {"solve": profile_solve(chk, dev, "solve", src, tgt, R_gt, t_gt),
@@ -2010,7 +2431,7 @@ def main() -> int:
                        solve=phases["solve"], trimmed_solve=phases["trimmed solve"],
                        trimmed_screen_solve=phases["trimmed screen solve"],
                        small=small, small_trimmed=small_trim, rotation_bound=rot_bound,
-                       cli=cli_out, phase8=fc_out,
+                       cli=cli_out, phase8=fc_out, phase9=ls_out,
                        failed=chk.failed,
                        total_s=time.perf_counter() - t_start), f, indent=1)
     if prof is not None:

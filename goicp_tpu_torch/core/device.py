@@ -30,6 +30,6 @@ def to_device(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     caching host allocator keeps the pinned block alive until the copy ran.
     """
     t = torch.as_tensor(x, dtype=dtype)
-    if device.type != "cuda":
+    if device.type != "cuda" or t.device.type != "cpu":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)

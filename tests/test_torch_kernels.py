@@ -653,3 +653,79 @@ def test_cube_angle_bound_card_equals_cpu(cuda, M):
         got = rotation.axis_angle_cube_max_angle(c_d, s_d)
         eager = rotation._cube_max_angle(c_d, s_d, 40, 12)
         assert torch.equal(got.cpu(), ref) and torch.equal(eager.cpu(), ref)
+
+
+# the lockstep multipair (multipair_lockstep): its K4 form on the card gives
+# the CPU path's K4 form (K4's plain version) bit for bit in ub and lb, the
+# epilogue's order and sine being the same on both; the refine's sse to
+# rtol 1e-5 (the ICP's step is not bit-equal across devices)
+def _lockstep_pairs(rng, P=3, n=300, nt=320):
+    from goicp_tpu_torch.geo.rotation import random_rotations
+
+    pairs = []
+    for b in range(P):
+        src = rng.uniform(-0.5, 0.5, (n - 20 * b, 3)).astype(np.float32)
+        R = random_rotations(1, rng)[0]
+        tgt = rng.uniform(-0.5, 0.5, (nt, 3)).astype(np.float32)
+        tgt[: src.shape[0]] = src @ R.T + rng.normal(0, 0.01, src.shape).astype(np.float32)
+        pairs.append((src, tgt))
+    return pairs
+
+
+@pytest.mark.parametrize("trim", [0.0, 0.25])
+def test_lockstep_round_card_equals_cpu(cuda, trim):
+    from goicp_tpu_torch import multipair_lockstep as ml
+    from goicp_tpu_torch.geo.rotation import random_rotations
+    from goicp_tpu_torch.icp import IcpParams
+
+    rng = np.random.default_rng(31)
+    pairs = _lockstep_pairs(rng)
+    P, M = len(pairs), 1024
+    R = random_rotations(P * M, rng).reshape(P, M, 3, 3)
+    ang = rng.uniform(0.01, 1.0, (P, M)).astype(np.float32)
+    t_c = rng.uniform(-0.1, 0.1, (P, M, 3)).astype(np.float32)
+    t_s = rng.uniform(0.005, 0.1, (P, M)).astype(np.float32)
+    mask = np.ones((P, M), bool)
+    mask[1, 700:] = False
+    mask[2] = False                                     # a pair with no live job
+    h = np.array([max(1, round(s.shape[0] * (1 - trim))) for s, _ in pairs], np.float64)
+    gate = np.full(P, 2.0, np.float32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        batch = ml._PairBatch(pairs, 300, dev)
+        outs.append([x.cpu() for x in ml._pairs_round(
+            batch, 0.0, R, ang, t_c, t_s, mask, h, gate, refine_k=8,
+            icp_params=IcpParams(max_iter=32, rel_tol=1e-4, trim_fraction=trim),
+            trim=trim > 0, use_kernel=True)])
+    (ub_g, lb_g, _, _, sse_g, _), (ub_c, lb_c, _, _, sse_c, _) = outs
+    assert torch.equal(ub_g, ub_c) and torch.equal(lb_g, lb_c)
+    assert bool(torch.isinf(ub_g[2]).all()) and bool(torch.isfinite(ub_g[0]).all())
+    torch.testing.assert_close(sse_g, sse_c, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_lockstep_icp_k1_launches(cuda, shared):
+    """The lockstep's batched ICP makes one K1 launch an iteration when every
+    pair shares one target object, one per distinct target otherwise."""
+    from goicp_tpu_torch.core.types import RigidTransform
+    from goicp_tpu_torch.icp import IcpParams
+    from goicp_tpu_torch.multipair import PairTargets, _icp_pairs_run
+
+    rng = np.random.default_rng(32)
+    pairs = _lockstep_pairs(rng)
+    if shared:
+        pairs = [(s, pairs[0][1]) for s, _ in pairs]
+    P, k = len(pairs), 8
+    srcs = np.zeros((P * k, 300, 3), np.float32)
+    for b, (s, _) in enumerate(pairs):
+        srcs[b * k:(b + 1) * k, : s.shape[0]] = s
+    w = torch.as_tensor((np.abs(srcs).sum(-1) > 0).astype(np.float32), device=cuda)
+    fused.reset_launch_counts()
+    _, _, iters = _icp_pairs_run(
+        torch.as_tensor(srcs, device=cuda), PairTargets([t for _, t in pairs], cuda),
+        w, RigidTransform.identity((P * k,), device=cuda),
+        IcpParams(max_iter=20, rel_tol=1e-6), pair_of_pose=np.repeat(np.arange(P), k))
+    torch.cuda.synchronize()
+    loops = int(iters.max())
+    assert loops > 1
+    assert fused.launches["nearest_neighbor_mxu"] == loops * (1 if shared else P)
