@@ -96,6 +96,28 @@ Phases, each of which fails the run:
    flags, one ``_pairs_round`` bit-equal in ub and lb, untrimmed and
    trimmed.
 
+10. distribution: 10a ``make_sharded_se3_round`` at the headline's largest
+   R-round bucket (21,080 nodes × 1,518 × 1,797) over meshes of the one
+   card listed 2-4 times: 2×1 and 4×1 on "mxu" (K4) and "screen" (K2) bit-equal
+   to the single-device round, 1×2 and 2×2 "mxu" untrimmed and trimmed (h
+   = 0.75·N) within rtol 1e-5 + atol 1e-5, each round's ms beside the
+   single-device round's (K4 and K2 must launch), then K4 at a point
+   shard and K2 at a cube shard against their plain versions (rows of
+   their own in the ``kernels`` line); 10b the certified bunny in two
+   processes on the card through ``make_solver`` (the frontier-sharded
+   ``GoIcpSolverMultiHost``), phase 4's threshold and round width, 150 s:
+   both converge with gap ≤ ε, poses bit-equal across ranks and within
+   the limits, each rank's counters and the total nodes/s beside phase 4's;
+   10c ``register_pairs_distributed`` of 9a's four pairs over two
+   processes, 15 s each: the result lists equal on both ranks at the
+   exchanged record's f32, poses within the limits; 10d a two-process
+   solve of 5b's 300-point subsets on the card and on the CPU: equal
+   per-rank rounds and nodes.  The workers re-invoke this script with
+   ``--mh-worker`` (the parent holds a CUDA context, so it does not fork)
+   and meet in a gloo group through a ``file://`` store under
+   ``chiprun_out/``; a worker that fails or outlives its timeout fails the
+   run.
+
 ``python3 chip_smoke.py --witness`` builds the kernels and runs only 7b's
 point-metric TOMLs, on the port's CPU path and on the card (minutes on the
 CPU), for ``CPU_WITNESS``.
@@ -477,8 +499,9 @@ def check_k2(chk, dev, S, T, rng, clock_hz, B, tag=""):
     return rec
 
 
-def check_k4(chk, dev, S, T, rng, clock_hz, B):
-    """K4 at the largest R-round bucket: per-node distances, tol 0."""
+def check_k4(chk, dev, S, T, rng, clock_hz, B, tag=""):
+    """K4 at the largest R-round bucket (``tag`` names another path's shape
+    in the row and the messages): per-node distances, tol 0."""
     import torch
 
     from goicp_tpu_torch.nn import fused
@@ -499,7 +522,7 @@ def check_k4(chk, dev, S, T, rng, clock_hz, B):
         ref = fused.min_d2_nodes_plain(*args)
         err = float((got - ref).abs().max())
         chk.expect(bool(torch.equal(got, ref)),
-                   f"K4 {name}: max |d2 err| {err:.3g} (tol 0: same rounding, bit-equal)")
+                   f"K4{tag} {name}: max |d2 err| {err:.3g} (tol 0: same rounding, bit-equal)")
     ms = timed_ms(lambda: fused.min_d2_nodes(srcT, wm, params), 10)
     plain = timed_ms(lambda: fused.min_d2_nodes_plain(srcT, wm, params), 2)
     Q = (S @ Rb.transpose(1, 2) + tb[:, None]).reshape(-1, 3)            # [B·N, 3]
@@ -514,15 +537,16 @@ def check_k4(chk, dev, S, T, rng, clock_hz, B):
     torch.cuda.synchronize()
     ref = fused.min_d2_nodes_plain(srcT, wm_g, p_g)
     chk.expect(bool(torch.equal(got, ref)),
-               f"K4 ring route {Bg} nodes {N}x{NTg}: max |d2 err| "
+               f"K4{tag} ring route {Bg} nodes {N}x{NTg}: max |d2 err| "
                f"{float((got - ref).abs().max()):.3g} (tol 0: bit-equal)")
     bg, byg = bound_ms(4.0 * (16 * Bg + 3 * N + 3 * NTg + Bg * srcT.shape[1]),
                        7.0 * Bg * N * NTg, clock_hz)
     ring = dict(ms=timed_ms(lambda: fused.min_d2_nodes(srcT, wm_g, p_g), 5),
                 plain_ms=timed_ms(lambda: fused.min_d2_nodes_plain(srcT, wm_g, p_g), 2),
                 bound_ms=bg, bound_by=byg, shape=f"{Bg} nodes x {N} points x {NTg} targets")
-    report("K4 ring route", dict(ring, library_ms=None))
-    return _rec("K4 min_d2_nodes (per-node distances, no index)", "goicp_tpu_torch/csrc/nn_min_d2.cu",
+    report(f"K4{tag} ring route", dict(ring, library_ms=None))
+    return _rec(f"K4 min_d2_nodes (per-node distances, no index){tag}",
+                "goicp_tpu_torch/csrc/nn_min_d2.cu",
                 "goicp_tpu/nn/mxu.py:176 (via min_d2_nodes :361)", err, ms, plain, b, by, lib,
                 f"{B} nodes x {N} points x {NT} targets",
                 library_call=f"torch.cdist + amin over the {B * N} transformed queries, "
@@ -2294,6 +2318,438 @@ def lockstep_phase(chk, dev, src, tgt, R_gt, t_gt, solo, clock_hz):
     return out
 
 
+MESH_NODES = 21080              # 10a: the headline's largest R-round bucket (8 · se3_pop)
+MESH_CASES = (                  # 10a: (label, (cubes, points), backend, trimmed)
+    ("2x1 mxu", (2, 1), "mxu", False), ("4x1 mxu", (4, 1), "mxu", False),
+    ("2x1 screen", (2, 1), "screen", False), ("4x1 screen", (4, 1), "screen", False),
+    ("1x2 mxu", (1, 2), "mxu", False), ("1x2 mxu trimmed", (1, 2), "mxu", True),
+    ("2x2 mxu", (2, 2), "mxu", False), ("2x2 mxu trimmed", (2, 2), "mxu", True),
+)
+MH_WALL_S = 150.0               # 10b: BnB budget of the two-process bunny (phase 4's)
+MH_PAIRS_WALL_S = 15.0          # 10c: BnB budget of each process's lockstep
+MH_AGREE_ROUNDS = 30            # 10d: lockstep iterations of the card-vs-CPU solves
+MH_TIMEOUT_S = 420              # a worker that runs longer is killed and fails the phase
+
+
+def mesh_round_inputs(rng, dev, M):
+    """``M`` nodes as an R-round holds them: rotations, cube angles for
+    spans π/8..π/32, translations and their half sides; the last 37 are
+    padding (masked)."""
+    import torch
+
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation
+
+    R = axis_angle_rotation(torch.as_tensor(
+        rng.uniform(-np.pi, np.pi, (M, 3)).astype(np.float32), device=dev))
+    ang = np.minimum(np.sqrt(3) * np.pi / 2 ** rng.integers(3, 6, M), np.pi).astype(np.float32)
+    t_c = rng.uniform(-0.3, 0.3, (M, 3)).astype(np.float32)
+    t_s = (0.5 / 2 ** rng.integers(2, 5, M)).astype(np.float32)
+    mask = np.ones(M, bool)
+    mask[-37:] = False
+    return (R, *(torch.as_tensor(x, device=dev) for x in (ang, t_c, t_s)),
+            torch.as_tensor(mask, device=dev))
+
+
+def phase_10a(chk, dev, src, tgt, clock_hz):
+    """10a: ``make_sharded_se3_round`` at the headline (21,080 nodes × 1,518
+    × 1,797) over meshes of the one card listed k times: cube-only meshes
+    (K4 on "mxu", K2 on "screen" at the median lb) bit-equal to the
+    single-device round, point-sharded ones (K4, untrimmed and trimmed at h
+    = 0.75·N) within rtol 1e-5 + atol 1e-5; each round's ms beside the
+    single-device round's.  The main path's K4 and K2 launches are counted
+    by shape (nodes x points); K4 and K2 get rows at a shard's shape, and
+    every other shard shape of the main path is checked against the plain
+    version too."""
+    import collections
+
+    import torch
+
+    from goicp_tpu_torch.bnb.bounds import BoundsEvaluator
+    from goicp_tpu_torch.bnb.se3_eval import se3_round_bounds
+    from goicp_tpu_torch.dist.se3 import make_sharded_se3_round, pad_points
+    from goicp_tpu_torch.dist.sharding import make_mesh
+    from goicp_tpu_torch.icp import IcpParams
+    from goicp_tpu_torch.nn import fused
+
+    rng = np.random.default_rng(101)
+    S, T = torch.as_tensor(src, device=dev), torch.as_tensor(tgt, device=dev)
+    norms = BoundsEvaluator(S).norms
+    N = S.shape[0]
+    h_trim = int(round(0.75 * N))
+    R, ang, t_c, t_s, mask = mesh_round_inputs(rng, dev, MESH_NODES)
+    _, lb_open = se3_round_bounds(S, norms, T, 0.0, float("inf"), R, ang, t_c, t_s, mask, h=0,
+                                  backend="mxu")
+    thresh = float(lb_open[mask].median())
+
+    def single(backend, h, th):
+        return se3_round_bounds(S, norms, T, 0.0, th, R, ang, t_c, t_s, mask, h=h,
+                                backend=backend)
+
+    rounds = []
+    for label, (n_c, n_p), backend, trimmed in MESH_CASES:
+        h = h_trim if trimmed else 0
+        th = thresh if backend == "screen" else float("inf")
+        sp, nrm = pad_points(src, norms.cpu().numpy(), n_p, 128)
+        rnd = make_sharded_se3_round(
+            make_mesh(n_c, n_p, devices=[dev] * (n_c * n_p)), h=h, n_valid=N, lookup="nearest",
+            backend=backend, tile=128, refine_k=8, icp_params=IcpParams(), icp_backend="exact")
+        args = (torch.as_tensor(sp, device=dev), torch.as_tensor(nrm, device=dev), None, T, 0.0,
+                th, R, ang, t_c, t_s, mask)
+        rounds.append((label, n_c, n_p, backend, h, th, rnd, args))
+    # the main path: every mesh round once, launches counted from 0; the
+    # spy records each K4/K2 launch's (nodes, points) and counts nothing
+    shapes = collections.Counter()
+    launch = fused._launch
+
+    def spy(name, fn, *a):
+        launch(name, fn, *a)
+        if name in ("min_d2_nodes", "bounds_nodes"):
+            shapes[(name, a[1], a[3])] += 1          # (params, B, srcT, Np, ...)
+
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    fused._launch = spy
+    try:
+        outs = [rnd.bounds(*args) for *_, rnd, args in rounds]
+        torch.cuda.synchronize()
+    finally:
+        fused._launch = launch
+    launches = dict(fused.launches)
+    cases = {}
+    for (label, n_c, n_p, backend, h, th, rnd, args), got in zip(rounds, outs):
+        ref = single(backend, h, th)
+        if n_p == 1:
+            ok = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
+            chk.expect(ok, f"10a {label} (h {h}): ub and lb bit-equal to the single-device round")
+            err = 0.0 if ok else float(max((g - r)[torch.isfinite(r)].abs().max()
+                                           for g, r in zip(got, ref)))
+        else:
+            err, ok = 0.0, True
+            for g, r in zip(got, ref):
+                fin = torch.isfinite(r)
+                ok &= bool(torch.equal(fin, torch.isfinite(g)))
+                d = (g[fin] - r[fin]).abs()
+                err = max(err, float(d.max()))
+                ok &= bool((d <= 1e-5 + 1e-5 * r[fin].abs()).all())
+            chk.expect(ok, f"10a {label} (h {h}): max |err| {err:.3g} against the single-device "
+                           "round (tol 1e-5 + 1e-5·|ref|)")
+        ms = timed_ms(lambda: rnd.bounds(*args), 5)
+        ms_single = timed_ms(lambda: single(backend, h, th), 5)
+        cases[label] = dict(mesh=[n_c, n_p], backend=backend, h=h, thresh=th, max_abs_err=err,
+                            ms=ms, single_device_ms=ms_single, mesh_over_single=ms / ms_single)
+        print(f"10a {label}: mesh round {ms:.4g} ms, single-device {ms_single:.4g} ms "
+              f"({ms / ms_single:.3f}x)", flush=True)
+    chk.expect(launches["min_d2_nodes"] > 0 and launches["bounds_nodes"] > 0,
+               f"10a mesh rounds launched K4 {launches['min_d2_nodes']} and K2 "
+               f"{launches['bounds_nodes']} times")
+    by_shape = {shape_key(*k): n for k, n in sorted(shapes.items())}
+    info = dict(nodes=MESH_NODES, points=N, targets=T.shape[0], cases=cases, launches=launches,
+                k1_launches_by_shape={}, mesh_launches_by_shape=by_shape,
+                card="[cuda:0] listed once per shard")
+    print("10a launches by shape: " + json.dumps(by_shape), flush=True)
+    # K4 at the 2x2 mesh's shard (10,540 nodes x 768 points), K2 at the
+    # 2x1 mesh's cube shard (10,540 nodes x 1,518 points, 1,536 packed)
+    nrm = norms.cpu().numpy()
+    sp, _ = pad_points(src, nrm, 2, 128)
+    shard = torch.as_tensor(sp[: sp.shape[0] // 2], device=dev)
+    k4 = check_k4(chk, dev, shard, T, rng, clock_hz, MESH_NODES // 2, tag=" mesh shard")
+    k4["replaces"] = ("goicp_tpu/nn/mxu.py:176 (via min_d2_nodes :361, dist/se3.py:142-152, "
+                      "one point shard)")
+    k4["mesh_shape_key"] = ("min_d2_nodes", MESH_NODES // 2, shard.shape[0])
+    report("K4 mesh shard", k4)
+    k2 = check_k2(chk, dev, S, T, rng, clock_hz, MESH_NODES // 2, tag=" mesh shard")
+    k2["replaces"] = "goicp_tpu/nn/mxu.py:479 (via dist/se3.py:125-140, one cube shard)"
+    k2["mesh_shape_key"] = ("bounds_nodes", MESH_NODES // 2, fused.pack_sources_ext(S, norms).shape[1])
+    # the main path's other shard shapes: one launch each against the plain version
+    for rec in (k4, k2):
+        own = rec["mesh_shape_key"]
+        chk.expect(shapes[own] > 0, f"{rec['name'].split()[0]} mesh shard: the main path "
+                                    f"launched it {shapes[own]} times at {shape_key(*own)}")
+        rec["other_shard_shapes"] = {
+            shape_key(*k): dict(launches=n, **check_shard_shape(chk, dev, k, S, norms, nrm, T, rng))
+            for k, n in sorted(shapes.items()) if k[0] == own[0] and k != own}
+    return info, k4, k2
+
+
+def shape_key(counter: str, nodes: int, points: int) -> str:
+    """10a's key of a K4/K2 launch shape: ``counter:nodesxpoints``."""
+    return f"{counter}:{nodes}x{points}"
+
+
+def check_shard_shape(chk, dev, key, S, norms, nrm, T, rng) -> dict:
+    """One launch of K4 or K2 at another shard shape of 10a's main path
+    against its plain version on the same inputs: K4 on the shard's padded
+    points, bit-equal; K2 on the whole source, screened at the median lb,
+    within 1e-5 + 1e-5·|ref| and bit-equal to its kernel-order twin."""
+    import torch
+
+    from goicp_tpu_torch.dist.se3 import pad_points
+    from goicp_tpu_torch.nn import fused
+    from goicp_tpu_torch.nn.agree import screened_agree
+
+    counter, B, Np = key
+    Rb, tb, af, gt = node_batch(rng, B, dev)
+    wm = fused.pack_targets(T)
+    if counter == "min_d2_nodes":
+        n_p = next(n for n in (1, 2, 4, 8) if pad_points(S.cpu().numpy(), nrm, n, 128)[0].shape[0]
+                   == n * Np)
+        pts = pad_points(S.cpu().numpy(), nrm, n_p, 128)[0][:Np]
+        args = (fused.pack_sources(torch.as_tensor(pts, device=dev)), wm, fused.pack_params(Rb, tb))
+        got = fused.min_d2_nodes(*args)
+        torch.cuda.synchronize()
+        ref = fused.min_d2_nodes_plain(*args)
+        err = float((got - ref).abs().max())
+        ok = bool(torch.equal(got, ref))
+        tol = "tol 0: bit-equal"
+        fn = fused.min_d2_nodes
+    else:
+        srcX = fused.pack_sources_ext(S, norms)
+        _, lb_open = fused.bounds_nodes_plain(
+            srcX, wm, fused.pack_params_bounds(Rb, tb, af, gt, 0.0, 1e30))
+        th = float(lb_open.median())
+        args = (srcX, wm, fused.pack_params_bounds(Rb, tb, af, gt, 0.0, th))
+        ub, lb = fused.bounds_nodes(*args)
+        torch.cuda.synchronize()
+        ok, err, _, _ = screened_agree(ub, lb, *fused.bounds_nodes_plain(*args), th, th)
+        ub_o, lb_o = fused.bounds_nodes_kernel_order(*args)
+        ok = ok and bool(torch.equal(ub, ub_o) and torch.equal(lb, lb_o))
+        tol = "tol 1e-5 + 1e-5·|ref|, bit-equal to the kernel-order version"
+        fn = fused.bounds_nodes
+    name = "K4" if counter == "min_d2_nodes" else "K2"
+    chk.expect(ok, f"{name} mesh shard at {B} nodes x {Np} points: max |err| {err:.3g} ({tol})")
+    return dict(max_abs_err=err, ms=timed_ms(lambda: fn(*args), 5))
+
+
+def mh_spawn(chk, label, nproc, spec):
+    """``nproc`` worker processes (this script with ``--mh-worker``), joined
+    in a gloo group through a ``file://`` store under ``chiprun_out/``;
+    returns their records, rank order.  A worker that fails or outlives
+    MH_TIMEOUT_S fails the phase (all are killed)."""
+    store = os.path.join(OUT_DIR, f"mh_store_{label.replace(' ', '_')}")
+    if os.path.exists(store):
+        os.remove(store)
+    outs, procs = [], []
+    for r in range(nproc):
+        out = f"{store}_{r}.json"
+        if os.path.exists(out):
+            os.remove(out)
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mh-worker", json.dumps(dict(
+                spec, rank=r, nproc=nproc, init=f"file://{store}", out=out))],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    recs, t_end = [], time.perf_counter() + MH_TIMEOUT_S
+    for r, (pr, out) in enumerate(zip(procs, outs)):
+        try:
+            log, _ = pr.communicate(timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            chk.expect(False, f"{label}: worker {r} outlived {MH_TIMEOUT_S} s")
+            return None
+        tail = log.decode(errors="replace")[-1500:]
+        ok = pr.returncode == 0 and os.path.exists(out)
+        chk.expect(ok, f"{label}: worker {r} exited {pr.returncode}" + ("" if ok else "\n" + tail))
+        if not ok:
+            for q in procs:
+                q.kill()
+                q.wait()
+            return None
+        with open(out) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def mh_worker(spec: dict) -> int:
+    """One process of a phase 10 run: ``solve`` (the frontier-sharded solve
+    through ``make_solver``) or ``pairs`` (``register_pairs_distributed``)
+    on ``spec["device"]``, in a gloo group; writes its record to
+    ``spec["out"]``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import goicp_tpu_torch  # noqa: F401  (sets the f32 precision policy)
+    from goicp_tpu_torch import BnbParams, make_solver
+    from goicp_tpu_torch.multipair import register_pairs_distributed
+    from goicp_tpu_torch.nn import fused, kernels
+
+    cuda = spec["device"] == "cuda"
+    if not cuda:
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // spec["nproc"]))
+    dist.init_process_group("gloo", init_method=spec["init"], rank=spec["rank"],
+                            world_size=spec["nproc"],
+                            timeout=datetime.timedelta(seconds=MH_TIMEOUT_S))
+    try:
+        if cuda:
+            kernels.lib()
+        data = spec["data"]
+        if data == "subset300":
+            psrc, ptgt, pR, pt = load_bunny_partial()
+            rng = np.random.default_rng(3)
+            src = psrc[np.sort(rng.choice(psrc.shape[0], 300, replace=False))]
+            tgt = ptgt[np.sort(rng.choice(ptgt.shape[0], 300, replace=False))]
+        else:
+            src, tgt, _, _, _ = load_bunny()
+        params = BnbParams(**spec["params"])
+        device = None if cuda else "cpu"
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        if spec["mode"] == "pairs":
+            _, _, R_gt, _, _ = load_bunny()
+            pairs, _ = lockstep_pairs(src, tgt, R_gt, LOCKSTEP_PAIRS, 91)
+            res = register_pairs_distributed(pairs, params, device=device)
+            # the fields of the exchanged record, at its f32 precision (a
+            # rank's own results keep their f64 gap otherwise)
+            rec = dict(results=[dict(R=np.asarray(r.transform.R).tolist(),
+                                     t=np.asarray(r.transform.t).tolist(),
+                                     sse=float(np.float32(r.sse)), gap=float(np.float32(r.gap)),
+                                     converged=bool(r.converged), rounds=r.rounds,
+                                     nodes=r.rot_nodes) for r in res])
+        else:
+            res = make_solver(src, tgt, params, device=device).run()
+            c, tm = res.metrics.counters, res.metrics.timers
+            rec = dict(R=np.asarray(res.transform.R).tolist(),
+                       t=np.asarray(res.transform.t).tolist(), sse=res.sse, mse=res.mse,
+                       gap=res.gap, converged=bool(res.converged), rounds=res.rounds,
+                       local_nodes=res.rot_nodes, rebalances=int(c.get("rebalances", 0)),
+                       mh_iters=int(c.get("mh_iters", 0)), bnb_s=tm.get("bnb", 0.0),
+                       mh_gather_s=tm.get("mh_gather_s", 0.0),
+                       mh_dispatch_s=tm.get("mh_dispatch_s", 0.0),
+                       mh_absorb_s=tm.get("mh_absorb_s", 0.0),
+                       mh_rebalance_s=tm.get("mh_rebalance_s", 0.0))
+        if cuda:
+            torch.cuda.synchronize()
+        rec.update(wall_s=time.perf_counter() - t0, launches=dict(fused.launches),
+                   k1_launches_by_shape={f"{q}x{t}": n for (q, t), n
+                                         in sorted(fused.nn_launch_shapes.items())},
+                   device=(torch.cuda.get_device_name(0) if cuda else "cpu"))
+        with open(spec["out"], "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _summed(recs, key):
+    out = {}
+    for r in recs:
+        for k, v in r[key].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_10b(chk, dev, src, tgt, R_gt, t_gt, solo):
+    """10b: the certified bunny headline through ``make_solver`` in two
+    processes on the one card (``GoIcpSolverMultiHost``), phase 4's
+    protocol, MH_WALL_S: both converge with gap ≤ ε, poses bit-equal across
+    ranks and within the limits; local nodes, rounds, rebalances, the
+    exchange and dispatch timers, and total nodes/s beside phase 4's."""
+    params, _ = solve_params(dev, src, tgt, R_gt, t_gt, max_wall_s=MH_WALL_S)
+    # phase 4's round width (its auto se3_pop), so that rates compare: the
+    # multi-process engine's own default pops 256 parents a round
+    se3_pop = max(64, min(4096, int(32e6 / (8 * src.shape[0]))))
+    t0 = time.perf_counter()
+    recs = mh_spawn(chk, "10b two-process bunny", 2, dict(
+        mode="solve", data="bunny", device="cuda",
+        params=dict(mse_threshold=params.mse_threshold, max_wall_s=MH_WALL_S,
+                    se3_pop=se3_pop)))
+    if recs is None:
+        return dict(launches={}, k1_launches_by_shape={})
+    wall = time.perf_counter() - t0
+    eps = params.mse_threshold * src.shape[0]
+    extent = float(np.linalg.norm(tgt.max(0) - tgt.min(0)))
+    for r, rec in enumerate(recs):
+        chk.expect(rec["converged"] and rec["gap"] <= eps,
+                   f"10b rank {r}: converged {rec['converged']}, gap {rec['gap']:.4g} (≤ ε {eps:.4g})")
+        pose_limits(chk, f"10b rank {r}", rec["R"], rec["t"], R_gt, t_gt, extent)
+    chk.expect(recs[0]["R"] == recs[1]["R"] and recs[0]["t"] == recs[1]["t"],
+               "10b poses bit-equal across ranks")
+    nodes = sum(r["local_nodes"] for r in recs)
+    bnb_s = max(r["bnb_s"] for r in recs)
+    info = dict(per_rank=[{k: r[k] for k in (
+        "local_nodes", "rounds", "rebalances", "mh_iters", "mh_gather_s", "mh_dispatch_s",
+        "mh_absorb_s", "mh_rebalance_s", "bnb_s", "wall_s", "converged", "gap", "sse",
+        "launches")} for r in recs],
+        nodes=nodes, nodes_per_s=nodes / bnb_s, solo_nodes_per_s=solo["nodes_per_s"],
+        over_solo=nodes / bnb_s / solo["nodes_per_s"], solo_nodes=solo["nodes"],
+        launch_to_exit_s=wall, mse_threshold=params.mse_threshold, max_wall_s=MH_WALL_S,
+        se3_pop=se3_pop,
+        R=recs[0]["R"], t=recs[0]["t"], launches=_summed(recs, "launches"),
+        k1_launches_by_shape=_summed(recs, "k1_launches_by_shape"))
+    for k in ("nearest_neighbor_mxu", "bounds_nodes", "min_d2_groups"):
+        chk.expect(all(r["launches"][k] > 0 for r in recs),
+                   f"10b both ranks launched {k} ({[r['launches'][k] for r in recs]})")
+    print("10b two-process bunny: " + json.dumps({k: info[k] for k in (
+        "per_rank", "nodes", "nodes_per_s", "solo_nodes_per_s", "over_solo",
+        "launch_to_exit_s")}), flush=True)
+    return info
+
+
+def phase_10c(chk, dev, src, tgt, R_gt, t_gt):
+    """10c: ``register_pairs_distributed`` of 9a's four pairs over two
+    processes on the one card, MH_PAIRS_WALL_S each: the result lists equal
+    on both ranks, every pose within the limits."""
+    params, _ = solve_params(dev, src, tgt, R_gt, t_gt, max_wall_s=MH_PAIRS_WALL_S)
+    recs = mh_spawn(chk, "10c distributed pairs", 2, dict(
+        mode="pairs", data="bunny", device="cuda",
+        params=dict(mse_threshold=params.mse_threshold, max_wall_s=MH_PAIRS_WALL_S)))
+    if recs is None:
+        return {}
+    chk.expect(recs[0]["results"] == recs[1]["results"] and len(recs[0]["results"]) == 4,
+               "10c the four results equal on both ranks")
+    _, R_gts = lockstep_pairs(src, tgt, R_gt, LOCKSTEP_PAIRS, 91)
+    extent = float(np.linalg.norm(tgt.max(0) - tgt.min(0)))
+    for b, (r, Rg) in enumerate(zip(recs[0]["results"], R_gts)):
+        pose_limits(chk, f"10c pair {b}", r["R"], r["t"], Rg, t_gt, extent)
+    info = dict(results=recs[0]["results"], wall_s=[r["wall_s"] for r in recs],
+                launches=[r["launches"] for r in recs])
+    print("10c distributed pairs: " + json.dumps(info), flush=True)
+    return info
+
+
+def phase_10d(chk, dev, psrc, ptgt, pR, pt):
+    """10d: a two-process solve of 5b's 300-point subsets (untrimmed,
+    MH_AGREE_ROUNDS lockstep iterations, no wall budget) on the card and on
+    the CPU: equal per-rank nodes and rounds, poses within 1e-4."""
+    rng = np.random.default_rng(3)
+    s = psrc[np.sort(rng.choice(psrc.shape[0], 300, replace=False))]
+    t = ptgt[np.sort(rng.choice(ptgt.shape[0], 300, replace=False))]
+    params, _ = solve_params(dev, s, t, pR, pt, 0.0)
+    kw = dict(mse_threshold=params.mse_threshold, se3_pop=64, init_multistart=8,
+              refine_top_k=2, max_rounds=MH_AGREE_ROUNDS, max_wall_s=1e9)
+    runs = {d: mh_spawn(chk, f"10d two-process {d}", 2, dict(mode="solve", data="subset300",
+                                                              device=d, params=kw))
+            for d in ("cuda", "cpu")}
+    if runs["cuda"] is None or runs["cpu"] is None:
+        return {}
+    for r, (g, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        dR = float(np.abs(np.asarray(g["R"]) - np.asarray(c["R"])).max())
+        chk.expect((g["rounds"], g["local_nodes"]) == (c["rounds"], c["local_nodes"])
+                   and dR < 1e-4,
+                   f"10d rank {r} card vs CPU: rounds {g['rounds']} vs {c['rounds']}, local "
+                   f"nodes {g['local_nodes']} vs {c['local_nodes']}, |dR| {dR:.3g}")
+    info = {d: [{k: r[k] for k in ("rounds", "local_nodes", "converged", "sse", "wall_s",
+                                   "launches")} for r in recs] for d, recs in runs.items()}
+    print("10d card vs CPU: " + json.dumps(info), flush=True)
+    return info
+
+
+def distribution_phase(chk, dev, src, tgt, R_gt, t_gt, psrc, ptgt, pR, pt, solo, clock_hz):
+    """Phase 10: 10a mesh rounds on the card (with K4 and K2 at a shard's
+    shape), 10b the two-process bunny, 10c ``register_pairs_distributed``,
+    10d card against CPU."""
+    out = {}
+    out["10a"], k4, k2 = phase_10a(chk, dev, src, tgt, clock_hz)
+    out["kernels"] = (k4, k2)
+    out["10b"] = phase_10b(chk, dev, src, tgt, R_gt, t_gt, solo)
+    out["10c"] = phase_10c(chk, dev, src, tgt, R_gt, t_gt)
+    out["10d"] = phase_10d(chk, dev, psrc, ptgt, pR, pt)
+    return out
+
+
 # (key, launch counter, the phase whose solve is the kernel's main path);
 # K1 has a row per shape (k1_shapes) and counts that shape's launches
 KERNELS = (
@@ -2313,12 +2769,16 @@ KERNELS = (
     ("K7", "bounds_groups", None),
     ("K4 lockstep", "min_d2_nodes", "lockstep"),
     ("K1 lockstep", "nearest_neighbor_mxu", "lockstep"),
+    ("K4 mesh shard", "min_d2_nodes", "mesh rounds"),
+    ("K2 mesh shard", "bounds_nodes", "mesh rounds"),
 )
 
 
 def main() -> int:
     import torch
 
+    if "--mh-worker" in sys.argv[1:]:
+        return mh_worker(json.loads(sys.argv[sys.argv.index("--mh-worker") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2391,6 +2851,14 @@ def main() -> int:
     phases["lockstep"] = ls_out["9a"]
     ls_out["phase_s"] = time.perf_counter() - t9
     print(f"phase 9: {ls_out['phase_s']:.1f} s", flush=True)
+    t10 = time.perf_counter()
+    mh_out = distribution_phase(chk, dev, src, tgt, R_gt, t_gt, psrc, ptgt, pR, pt,
+                                phases["solve"], clock_mhz * 1e6)
+    recs["K4 mesh shard"], recs["K2 mesh shard"] = mh_out.pop("kernels")
+    phases["mesh rounds"] = mh_out["10a"]
+    phases["two-process solve"] = mh_out["10b"]
+    mh_out["phase_s"] = time.perf_counter() - t10
+    print(f"phase 10: {mh_out['phase_s']:.1f} s", flush=True)
     prof = None
     if "--profile" in sys.argv[1:]:
         prof = {"solve": profile_solve(chk, dev, "solve", src, tgt, R_gt, t_gt),
@@ -2405,13 +2873,24 @@ def main() -> int:
         r = dict(recs[key])
         shape = r.pop("shape_key", None)
         k5_shape = r.pop("k5_shape_key", None)
+        mesh_shape = r.pop("mesh_shape_key", None)
 
         def count(info):
+            """The row's launches in one phase; KeyError where the phase
+            does not record this kernel's count."""
             if shape is not None:
                 return info["k1_launches_by_shape"].get(f"{shape[0]}x{shape[1]}", 0)
             if k5_shape is not None:
-                return info.get("k5_launches_by_np", {}).get(f"{k5_shape[0]}x{k5_shape[1]}", 0)
+                return info["k5_launches_by_np"].get(f"{k5_shape[0]}x{k5_shape[1]}", 0)
+            if mesh_shape is not None:
+                return info["mesh_launches_by_shape"].get(shape_key(*mesh_shape), 0)
             return info["launches"][counter]
+
+        def count_any(info):
+            try:
+                return count(info)
+            except KeyError:          # e.g. 10b's summed worker counts hold no entry
+                return 0
 
         if phase is None:
             r["launches"] = r.pop("check_launches")
@@ -2420,8 +2899,8 @@ def main() -> int:
         else:
             r["launches"] = count(phases[phase])
             r["launches_from"] = (phase if shape is None and k5_shape is None
-                                  else f"{phase}, at this shape")
-        r["launches_by_phase"] = {k: count(v) for k, v in phases.items()}
+                                  and mesh_shape is None else f"{phase}, at this shape")
+        r["launches_by_phase"] = {k: count_any(v) for k, v in phases.items()}
         prefix = key.split()[0] + " "
         r["check"] = "fail" if any(f.startswith(prefix) for f in chk.failed) else "pass"
         kernels_line.append(r)
@@ -2431,7 +2910,7 @@ def main() -> int:
                        solve=phases["solve"], trimmed_solve=phases["trimmed solve"],
                        trimmed_screen_solve=phases["trimmed screen solve"],
                        small=small, small_trimmed=small_trim, rotation_bound=rot_bound,
-                       cli=cli_out, phase8=fc_out, phase9=ls_out,
+                       cli=cli_out, phase8=fc_out, phase9=ls_out, phase10=mh_out,
                        failed=chk.failed,
                        total_s=time.perf_counter() - t_start), f, indent=1)
     if prof is not None:

@@ -10,7 +10,10 @@ or a distance grid, with checkpoint/resume and full-cloud certification
 (:func:`goicp_tpu_torch.bnb.register_full_cert`); the lockstep solve of
 many pairs (:func:`register_pairs`, :func:`icp_pairs`); and the JSON-lines
 registration service (``python -m goicp_tpu_torch serve``,
-:mod:`goicp_tpu_torch.serve`).  Its kernels are written for Hopper in CUDA
+:mod:`goicp_tpu_torch.serve`); and distribution
+(:mod:`goicp_tpu_torch.dist`): rounds sharded over a device mesh, one solve
+frontier-sharded over the processes of a ``torch.distributed`` group, and
+``register_pairs_distributed``.  Its kernels are written for Hopper in CUDA
 C++ (``csrc/``, K1-K7, one for each Pallas kernel of the JAX package; see
 :mod:`goicp_tpu_torch.nn.fused`).
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which

@@ -1,9 +1,7 @@
 """Solver configuration (:class:`BnbParams`), result record
 (:class:`GoIcpResult`) and the auto-backend rule — port of the JAX package's
 ``bnb/params.py``.  The fields and defaults are the JAX package's, so one
-parameter dict drives both packages (:meth:`BnbParams.from_dict`); options
-this port does not run yet raise ``NotImplementedError`` when a solver is
-built (``bnb/solver.py``).
+parameter dict drives both packages (:meth:`BnbParams.from_dict`).
 """
 
 from __future__ import annotations
@@ -142,8 +140,8 @@ class BnbParams:
     mesh_points: int = 1             # devices over the point axis (psum-
                                      # reduced bound sums; composes with
                                      # mesh_cubes as a 2-D mesh)
-    mh_exchange_every: int = 4       # multi-host exchange cadence (the
-                                     # multi-host engine is not ported yet)
+    mh_exchange_every: int = 4       # multi-process lockstep iterations
+                                     # between incumbent exchanges
     escalate_mse: Optional[float] = None
                                      # serving-only tracking-loss threshold
                                      # (the solver ignores it)

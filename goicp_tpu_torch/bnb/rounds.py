@@ -1,5 +1,6 @@
-"""The SE(3) round driver (port of the JAX package's ``bnb/rounds.py``
-without the device-mesh branch).
+"""The SE(3) round driver (port of the JAX package's ``bnb/rounds.py``),
+shared by the single-process engine (``bnb/se3.py``) and the multi-process
+one (``dist/multihost.py``).
 
 Each round pops a homogeneous batch from one of two frontiers (split by next
 split type), expands it 8-way, pads it to a job-count bucket and queues one
@@ -13,6 +14,14 @@ rounds sit in the queue.  The round's ICP refine tail tests its loop
 condition on the host, which waits for the device, so it runs in
 ``absorb``: its inputs (the round's ub, its poses and the refine gate) are
 all fixed at dispatch, which gives the JAX package's results.
+
+Knobs, each keeping its engine's semantics (``rounds.py:14-27``):
+``bucket_base`` (the first job-count bucket: 2,048 single-process, 256
+multi-process), ``mesh`` (rounds through a (cubes × points) mesh,
+:mod:`goicp_tpu_torch.dist.se3`), ``tight_ang`` (the center-aware angle
+bound; not on a mesh) and ``sharded_pad_full`` (pad mesh rounds to the
+full cap).  ``absorb`` prunes the frontiers the moment it improves the
+incumbent; the multi-process engine prunes again after its exchange.
 """
 
 from __future__ import annotations
@@ -47,13 +56,18 @@ class Se3RoundDriver:
         *,
         pop_cap: int,
         M_cap: int,
+        bucket_base: int = _BUCKET_BASE,
+        mesh=None,
         tight_ang: bool = False,
+        sharded_pad_full: bool = False,
     ):
         self.s = solver
         self.m = solver.metrics
         self.pop_cap = pop_cap
         self.M_cap = M_cap
+        self.mesh = mesh        # (sharded round, src_pad, norms_pad, n_c)
         self.tight_ang = tight_ang
+        self.sharded_pad_full = sharded_pad_full
 
         p = solver.p
         self.mean_norm = float(np.mean(np.linalg.norm(solver.src, axis=1)))
@@ -77,7 +91,7 @@ class Se3RoundDriver:
         )
 
         buckets = []
-        b = _BUCKET_BASE
+        b = bucket_base
         while b < M_cap:
             buckets.append(b)
             b *= 2
@@ -194,7 +208,8 @@ class Se3RoundDriver:
         child[:, 7] = np.repeat(half_t, 8)
         C = 8 * B
 
-        G_cap = self.bucket(C) // 8
+        G_cap = (self.pop_cap if self.mesh is not None and self.sharded_pad_full
+                 else self.bucket(C) // 8)
         padg = G_cap - B
         R_pad = np.concatenate(
             [R_g, np.tile(np.eye(3, dtype=np.float32), (padg, 1, 1))]
@@ -202,6 +217,16 @@ class Se3RoundDriver:
         ts8 = np.repeat(half_t, 8).reshape(B, 8)
         mask = np.zeros(8 * G_cap, bool)
         mask[:C] = True
+        if self.mesh is not None:
+            out = self._dispatch_sharded(
+                np.repeat(R_pad, 8, axis=0),
+                np.repeat(np.concatenate([ang_g, np.zeros(padg, np.float32)]), 8),
+                np.concatenate([t8, np.zeros((padg, 8, 3), np.float32)]).reshape(-1, 3),
+                np.concatenate([ts8, np.zeros((padg, 8), np.float32)]).reshape(-1),
+                mask,
+            )
+            return self._work([(child, np.zeros(C, bool), np.repeat(R_g, 8, axis=0), out, C)],
+                              pay, pop_lb, pop_ub, round_idx, 8 * G_cap, grouped=B)
         ub, lb, R_flat, t_flat = se3_round_grouped_bounds(
             s._src_dev, s.ev.norms, s._tgt_dev, self._slack, self.thresh(),
             self._dev(R_pad),
@@ -217,22 +242,33 @@ class Se3RoundDriver:
             **self._bound_kw,
         )
         out = {"bounds": (ub, lb, R_flat, t_flat), "gate": self.refine_gate()}
-        return {
-            "parts": [(child, np.zeros(C, bool),
-                       np.repeat(R_g, 8, axis=0), out, C)],
+        return self._work([(child, np.zeros(C, bool), np.repeat(R_g, 8, axis=0), out, C)],
+                          pay, pop_lb, pop_ub, round_idx, 8 * G_cap, grouped=B)
+
+    @staticmethod
+    def _work(parts, pay, pop_lb, pop_ub, round_idx, width, grouped=None) -> dict:
+        """A queued round: its parts, its popped parents and their counts."""
+        B = pay.shape[0]
+        work = {
+            "parts": parts,
             "parents": (pay, pop_lb, pop_ub),
-            "grouped": B,
             "round": round_idx,
             "t0": time.perf_counter(),
             "n_parents": B,
             "min_parent_lb": float(pop_lb.min()) if B else float("inf"),
-            "width": 8 * G_cap,
+            "width": width,
         }
+        if grouped is not None:
+            work["grouped"] = grouped
+        return work
 
-    def dispatch_singleton(self, frontier, round_idx: int = 0) -> dict:
-        """Pop from ``frontier`` (fR: rotation splits and leaves) → octant
-        children as singleton jobs → one round (kernel K2 or K5 on the
-        "screen" backend, K4 on "mxu", plain PyTorch on "exact"/"grid")."""
+    def dispatch_singleton(self, frontier, round_idx: int = 0, child_filter=None) -> dict:
+        """Pop from ``frontier`` (fR: rotation splits and leaves; the
+        multi-process engine's root round may pop fT) → octant children as
+        singleton jobs → one round (kernel K2 or K5 on the "screen" backend,
+        K4 on "mxu", plain PyTorch on "exact"/"grid").  ``child_filter(pay,
+        child, keep) → keep`` lets the multi-process engine partition the
+        root's children."""
         m = self.m
         pay, pop_lb, pop_ub = frontier.pop_best(self.pop_cap)
         B = pay.shape[0]
@@ -256,6 +292,8 @@ class Se3RoundDriver:
             keep &= ~lf | (np.arange(8 * B) % 8 == 0)
         # rotation-ball validity (jly_goicp.cpp:443-446)
         keep &= self.s.rotparam.valid(child[:, 0:3], child[:, 3])
+        if child_filter is not None:
+            keep = child_filter(pay, child, keep)
         child, lf = child[keep], lf[keep]
         C = child.shape[0]
         parts = []
@@ -265,25 +303,27 @@ class Se3RoundDriver:
             m.count("se3_nodes", C)
             out, R_c, width = self._eval_singleton(child)
             parts = [(child, lf, R_c, out, C)]
-        return {
-            "parts": parts,
-            "parents": (pay, pop_lb, pop_ub),
-            "round": round_idx,
-            "t0": time.perf_counter(),
-            "n_parents": B,
-            "min_parent_lb": float(pop_lb.min()) if B else float("inf"),
-            "width": width,
-        }
+        return self._work(parts, pay, pop_lb, pop_ub, round_idx, width)
 
     def _eval_singleton(self, child):
         """Pad ``child [C,8]`` payloads to a bucket and queue one singleton
         round.  Returns ``(out, R_c, width)``."""
         s = self.s
         C = child.shape[0]
-        cap = self.bucket(C)
+        cap = (self.M_cap if self.mesh is not None and self.sharded_pad_full
+               else self.bucket(C))
         padn = cap - C
         R_c = s.rotparam.rotation(child[:, 0:3])
         ang_c = s.rotparam.max_angle(child[:, 0:3], child[:, 3]).astype(np.float32)
+        if self.mesh is not None:
+            out = self._dispatch_sharded(
+                np.concatenate([R_c, np.tile(np.eye(3, dtype=np.float32), (padn, 1, 1))]),
+                np.concatenate([ang_c, np.zeros(padn, np.float32)]),
+                np.concatenate([child[:, 4:7], np.zeros((padn, 3), np.float32)]),
+                np.concatenate([child[:, 7], np.zeros(padn, np.float32)]),
+                np.concatenate([np.ones(C, bool), np.zeros(padn, bool)]),
+            )
+            return out, R_c, cap
         R_dev = self._dev(np.concatenate(
             [R_c, np.tile(np.eye(3, dtype=np.float32), (padn, 1, 1))]
         ))
@@ -308,17 +348,42 @@ class Se3RoundDriver:
         out = {"bounds": (ub, lb, R_dev, t_dev), "gate": self.refine_gate()}
         return out, R_c, cap
 
+    def _dispatch_sharded(self, R_c, ang_c, t_c, t_s, mask):
+        """Queue the mesh round's bounds on flat job arrays (both round
+        kinds), the job axis padded to a multiple of the cube extent
+        (``rounds.py:439``)."""
+        s = self.s
+        sharded_round, src_pad, norms_pad, n_c = self.mesh
+        pad = -(-R_c.shape[0] // n_c) * n_c - R_c.shape[0]
+        if pad:
+            R_c = np.concatenate([R_c, np.tile(np.eye(3, dtype=np.float32), (pad, 1, 1))])
+            ang_c = np.concatenate([ang_c, np.zeros(pad, np.float32)])
+            t_c = np.concatenate([t_c, np.zeros((pad, 3), np.float32)])
+            t_s = np.concatenate([t_s, np.zeros(pad, np.float32)])
+            mask = np.concatenate([mask, np.zeros(pad, bool)])
+        R_dev, t_dev = self._dev(R_c), self._dev(t_c)
+        ub, lb = sharded_round.bounds(
+            src_pad, norms_pad, s.grid, s._tgt_dev, self._slack, self.thresh(), R_dev,
+            self._dev(ang_c), t_dev, self._dev(t_s), self._dev(mask, torch.bool),
+        )
+        return {"bounds": (ub, lb, R_dev, t_dev), "gate": self.refine_gate(),
+                "refine": sharded_round.refine}
+
     # -- absorb --------------------------------------------------------------
 
     def _finish(self, out):
-        """Run the round's refine tail and fetch everything to the host."""
+        """Run the round's refine tail and fetch everything to the host.  A
+        mesh round refines on the point metric (``solver.py:248``)."""
         s = self.s
         ub, lb, R, t = out["bounds"]
-        res = _refine_tail(
-            ub, lb, R, t, s._src_dev, s._tgt_dev, s.p.refine_top_k,
-            s._icp_params_round, out["gate"], grid=s.grid,
-            tgt_normals=s._nrm_dev, icp_backend=s._icp_backend,
-        )
+        if "refine" in out:
+            res = out["refine"](ub, lb, R, t, s._src_dev, s._tgt_dev, s.grid, out["gate"])
+        else:
+            res = _refine_tail(
+                ub, lb, R, t, s._src_dev, s._tgt_dev, s.p.refine_top_k,
+                s._icp_params_round, out["gate"], grid=s.grid,
+                tgt_normals=s._nrm_dev, icp_backend=s._icp_backend,
+            )
         return [x.cpu().numpy() for x in res]
 
     def absorb(self, work: dict):

@@ -1,5 +1,5 @@
 """Flat SE(3) product-space BnB — the global solver engine (port of the JAX
-package's ``bnb/se3.py``, single device, without the device mesh).
+package's ``bnb/se3.py``).
 
 One best-first BnB over ``SO(3) × R³``.  Each node is a (rotation cube,
 translation cube) pair with
@@ -13,7 +13,10 @@ in one queued device round and refines the best few by batched ICP.  With
 ``checkpoint_path`` the frontiers and the incumbent are saved every
 ``checkpoint_every`` rounds and a solve resumes from the file when it
 exists; the snapshot's format is the JAX package's, so either package
-resumes the other's.
+resumes the other's.  With ``mesh_cubes``/``mesh_points`` the rounds run
+over a (cubes × points) mesh of this process's devices
+(:mod:`goicp_tpu_torch.dist.se3`); a mesh keeps host angles (no
+center-aware bound), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,11 +71,28 @@ class GoIcpSolverSE3(GoIcpSolver):
             64, min(4096, int(32e6 / (8 * self.src.shape[0])))
         )
         M_cap = 8 * se3_pop
+        # the (cubes × points) mesh of this process's devices: each round's
+        # jobs over cubes, the source over points (None: one device)
+        from goicp_tpu_torch.dist.se3 import make_engine_mesh
+
+        mesh = None
+        _mesh = make_engine_mesh(
+            p, self._backend, self.src, self.ev.norms.cpu().numpy(),
+            h=(self.ev.h if p.trim_fraction > 0 else 0),
+            icp_params=self._icp_params_round_mesh, icp_backend=self._icp_backend,
+            device=self.device, log=self.log,
+        )
+        if _mesh is not None:
+            sharded_round, src_pad, norms_pad, n_c, _ = _mesh
+            M_cap = -(-M_cap // n_c) * n_c
+            mesh = (sharded_round, src_pad, norms_pad, n_c)
         # center-aware rotation-cube angle bound, computed inside each round
-        tight_ang = p.tight_rot_bound and p.rotation_param == "axis_angle"
+        # (a mesh round takes host angles)
+        tight_ang = (p.tight_rot_bound and p.rotation_param == "axis_angle"
+                     and mesh is None)
 
         drv = Se3RoundDriver(
-            self, pop_cap=se3_pop, M_cap=M_cap, tight_ang=tight_ang,
+            self, pop_cap=se3_pop, M_cap=M_cap, mesh=mesh, tight_ang=tight_ang,
         )
         drv.best_R, drv.best_t, drv.best_sse = best_R, best_t, best_sse
         drv.push_root()

@@ -31,6 +31,7 @@ from goicp_tpu_torch.bnb.bounds import lookup_sq
 from goicp_tpu_torch.core.types import RigidTransform
 from goicp_tpu_torch.geo.rotation import (
     axis_angle_cube_max_angle,
+    deflation_factor,
     rotation_displacement,
 )
 from goicp_tpu_torch.nn import fused
@@ -55,27 +56,38 @@ def _deflate_and_reduce(d2, norms, slack, max_angle, t_span, mask, *,
     """Bound epilogue over per-node exact distances ``d2 [M, Np]``: Yang et
     al. eq. 10 deflation by the per-point rotation radius and the
     translation corner radius, then (trimmed) sums (``se3_eval.py:60``)."""
-    M, Np = d2.shape
+    Np = d2.shape[1]
     drop = _drop(h, N)
+    pmask = (torch.arange(Np, device=d2.device) < N).to(torch.float32)[None, :]
+    ub_c, lb_c = deflate_terms(d2, torch.nn.functional.pad(norms, (0, Np - N)), slack,
+                               max_angle, t_span, pmask, drop)
+    if drop:
+        s_ub = _trimmed_sum_bisect(ub_c, h, upper=True)
+        s_lb = _trimmed_sum_bisect(lb_c, h, upper=False)
+    else:
+        s_ub = ub_c.sum(-1)
+        s_lb = lb_c.sum(-1)
+    return _masked(mask, s_ub, s_lb)
+
+
+def deflate_terms(d2, norms, slack, max_angle, t_span, pmask, drop: int):
+    """The epilogue's per-point terms ``(ub, lb) [M, Np]``: ``d_hi²`` and
+    ``max(d_lo − γr − γt, 0)²`` times ``pmask [1, Np]`` (0 on padded
+    points, whose ``norms`` are 0), and padded points at 1e30 when ``drop``
+    trims, so they never take an inlier slot."""
     d = fused.sqrt_rn(torch.clamp(d2, min=0.0))
     d_lo = torch.clamp(d - slack, min=0.0)
     d_hi = d + slack
-    gamma_r = rotation_displacement(max_angle, norms)     # [M, N]
-    if Np > N:
-        gamma_r = torch.nn.functional.pad(gamma_r, (0, Np - N))
+    gamma_r = rotation_displacement(max_angle, norms)     # [M, Np]
     gamma_t = (_SQRT3 * t_span)[:, None]
-    pmask = (torch.arange(Np, device=d2.device) < N).to(torch.float32)[None, :]
     ub_c = (d_hi * d_hi) * pmask
     c = torch.clamp(d_lo - gamma_r - gamma_t, min=0.0)
     lb_c = (c * c) * pmask
     if drop:
         inf_pad = (1.0 - pmask) * 1e30
-        s_ub = _trimmed_sum_bisect(ub_c + inf_pad, h, upper=True)
-        s_lb = _trimmed_sum_bisect(lb_c + inf_pad, h, upper=False)
-    else:
-        s_ub = ub_c.sum(-1)
-        s_lb = lb_c.sum(-1)
-    return _masked(mask, s_ub, s_lb)
+        ub_c = ub_c + inf_pad
+        lb_c = lb_c + inf_pad
+    return ub_c, lb_c
 
 
 def evaluate_se3_nodes_mxu(src, norms, tgt, slack, R, max_angle, t_c, t_span,
@@ -122,7 +134,7 @@ def evaluate_se3_nodes_screened(src, norms, tgt, slack, thresh, R, max_angle,
     their outputs are replaced by +inf either way."""
     N = src.shape[0]
     drop = _drop(h, N)
-    af = 2.0 * torch.sin(torch.clamp(max_angle, max=math.pi) / 2.0)
+    af = deflation_factor(max_angle)
     gt = _SQRT3 * t_span
     srcT, wm = fused.pack_sources_ext(src, norms), fused.pack_targets(tgt)
     if drop:
@@ -145,7 +157,7 @@ def evaluate_se3_groups_screened(src, norms, tgt, slack, thresh, R, max_angle,
     are all masked get threshold −inf and are skipped at once."""
     N = src.shape[0]
     drop = N - h
-    af = 2.0 * torch.sin(torch.clamp(max_angle, max=math.pi) / 2.0)   # [G]
+    af = deflation_factor(max_angle)                                # [G]
     gt8 = _SQRT3 * t_span8                                          # [G,8]
     params = fused.pack_group_params_bounds_trimmed(R, t8, af, gt8, slack,
                                                     *_trim_screen(thresh, h, drop))
@@ -228,9 +240,27 @@ def evaluate_se3_nodes(src, norms, grid, tgt, slack, R, max_angle, t_c, t_span,
     in sequence; trimmed sums by the bisection with ``ordered=True``), so
     node counts do not move with the summation order.
     ``tgt`` is read by "exact" only; ``grid`` by "grid" only."""
-    M, N = R.shape[0], src.shape[0]
+    drop = _drop(h, src.shape[0])
+    ub_t, lb_t = node_tile_terms(
+        src, norms, grid, tgt, slack, R, max_angle, t_c, t_span, drop=drop,
+        lookup=lookup, backend=backend, tile=tile, tgt_tile=tgt_tile,
+    )
+    if drop:
+        s_ub = _trimmed_sum_bisect(torch.cat(ub_t, dim=1), h, upper=True, ordered=True)
+        s_lb = _trimmed_sum_bisect(torch.cat(lb_t, dim=1), h, upper=False, ordered=True)
+    else:
+        s_ub, s_lb = (tile_sums(torch.stack(s, dim=1)) for s in (ub_t, lb_t))
+    return _masked(mask, s_ub, s_lb)
+
+
+def node_tile_terms(src, norms, grid, tgt, slack, R, max_angle, t_c, t_span, *,
+                    drop: int, lookup: str, backend: str, tile: int, tgt_tile: int):
+    """The per-point ub and lb terms of :func:`evaluate_se3_nodes`, one
+    ``[M, tile]`` pair per point tile (the last tile zero-padded: its
+    padded terms are 0, or 1e30 when ``drop`` trims, so they never take an
+    inlier slot).  Returns ``(ub_tiles, lb_tiles)``."""
+    N = src.shape[0]
     dev = src.device
-    drop = _drop(h, N)
     if backend == "exact":
         tgt_tiles, tgt_norm_tiles = _target_tiles(tgt, tgt_tile)
 
@@ -269,15 +299,10 @@ def evaluate_se3_nodes(src, norms, grid, tgt, slack, R, max_angle, t_c, t_span,
             lb_c = lb_c + inf_pad
         stored_ub.append(ub_c)
         stored_lb.append(lb_c)
-    if drop:
-        s_ub = _trimmed_sum_bisect(torch.cat(stored_ub, dim=1), h, upper=True, ordered=True)
-        s_lb = _trimmed_sum_bisect(torch.cat(stored_lb, dim=1), h, upper=False, ordered=True)
-    else:
-        s_ub, s_lb = (_tile_sums(torch.stack(s, dim=1)) for s in (stored_ub, stored_lb))
-    return _masked(mask, s_ub, s_lb)
+    return stored_ub, stored_lb
 
 
-def _tile_sums(terms):
+def tile_sums(terms):
     """``[M, T, tile] → [M]``: each tile's sum, then the tiles in sequence
     (the JAX package's scan carry)."""
     per_tile = fused.ordered_row_sum(terms)

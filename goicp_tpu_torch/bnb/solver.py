@@ -11,8 +11,10 @@ above), builds the distance grid when either needs it (or reuses a
 caller's ``grid=``), and estimates target normals for
 ``icp_metric="plane"`` (or takes a caller's ``normals=``).  ``bound_idx``
 pins the solve subset (full-cloud certification, ``bnb/fullcert.py``).
-Device meshes on the SE(3) engine raise ``NotImplementedError`` naming the
-ROADMAP item that adds them.
+``mesh_cubes``/``mesh_points`` shard the SE(3) engine's rounds over a
+device mesh of this process (``dist/se3.py``); under an initialised
+``torch.distributed`` group of more than one process :func:`make_solver`
+builds the frontier-sharded multi-process engine (``dist/multihost.py``).
 """
 
 from __future__ import annotations
@@ -50,13 +52,8 @@ _CHECKPOINT_KEYS = ("payload", "lb", "ub", "best_R", "best_t", "best_sse", "leaf
                     "rounds", "nodes")
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item!r})")
-
-
 def _check_params(params: BnbParams):
-    """Enum checks as in the JAX package, then the options outside this
-    port's slice."""
+    """Enum checks as in the JAX package."""
     if params.icp_metric not in ("point", "plane"):
         raise ValueError(f"icp_metric must be 'point' or 'plane', got {params.icp_metric!r}")
     if params.engine not in ("se3", "nested"):
@@ -72,8 +69,6 @@ def _check_params(params: BnbParams):
         raise ValueError(
             f"rotation_param must be one of {sorted(_PARAMS)}, got {params.rotation_param!r}"
         )
-    if params.engine == "se3" and max(params.mesh_cubes, params.mesh_points) > 1:
-        _not_ported("mesh_cubes/mesh_points > 1 on the SE(3) engine", "Distribution")
 
 
 def save_checkpoint(path: str, payload, lb, ub, best_R, best_t, best_sse: float,
@@ -182,6 +177,12 @@ class GoIcpSolver:
         self._icp_params_round = dataclasses.replace(
             self._icp_params,
             max_iter=min(params.icp_max_iter, params.refine_max_iter),
+        )
+        # a mesh round refines on the point metric (no normals on its
+        # path, solver.py:261); both refine directions are sound, since the
+        # reported sse is point-to-point either way
+        self._icp_params_round_mesh = dataclasses.replace(
+            self._icp_params_round, metric="point"
         )
         # plane-metric refinement descends the point-to-plane objective, but
         # incumbents are always the point-SSE best pose, so pruning and the
@@ -399,17 +400,35 @@ def make_solver(
     grid=None,
     normals=None,
     bound_idx=None,
+    local: bool = False,
 ) -> GoIcpSolver:
-    """Engine dispatch on one device (``solver.py:810``): the flat SE(3)
-    engine ("se3", the default) or the nested one ("nested")."""
+    """Engine dispatch (``solver.py:810``): the flat SE(3) engine ("se3",
+    the default) or the nested one ("nested").  Under an initialised
+    ``torch.distributed`` group of more than one process the SE(3) engine
+    is the frontier-sharded :class:`~goicp_tpu_torch.dist.multihost.GoIcpSolverMultiHost`
+    (every process calls this with the same clouds and params), unless
+    ``local``: the collective-free engine, for work already split between
+    processes (``register_pairs_distributed``)."""
     kw = dict(device=device, grid=grid, normals=normals, bound_idx=bound_idx)
     if params.engine == "nested":
         from goicp_tpu_torch.bnb.nested import GoIcpSolverNested
 
         return GoIcpSolverNested(src, tgt, params, progress, **kw)
+    if not local and _world_size() > 1:
+        from goicp_tpu_torch.dist.multihost import GoIcpSolverMultiHost
+
+        return GoIcpSolverMultiHost(src, tgt, params, progress, **kw)
     from goicp_tpu_torch.bnb.se3 import GoIcpSolverSE3
 
     return GoIcpSolverSE3(src, tgt, params, progress, **kw)
+
+
+def _world_size() -> int:
+    """Processes in the initialised default ``torch.distributed`` group
+    (1 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def register(

@@ -24,9 +24,10 @@ Modes:
 ``[tpu] full_cert`` certifies the whole source cloud by adaptive subset
 refinement (``register_full_cert``), ``--checkpoint``/``checkpoint_path``
 snapshots and resumes the BnB, and ``[tpu] engine = "nested"`` runs the
-nested engine.  Device meshes (``mesh_cubes``/``mesh_points`` above 1) on
-the SE(3) engine raise ``NotImplementedError`` naming their ROADMAP item
-when the solver is built.
+nested engine.  ``[tpu] mesh_cubes``/``mesh_points`` shard the SE(3)
+engine's rounds over a device mesh of this process; ``mesh_cubes = 0``
+(the default) means every local device: one card on a one-card host, one
+shard on the CPU.
 """
 
 from __future__ import annotations

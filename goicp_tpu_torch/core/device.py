@@ -33,3 +33,16 @@ def to_device(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     if device.type != "cuda" or t.device.type != "cpu":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def local_devices(device=None, n: int | None = None) -> list:
+    """The devices this process may shard over (``jax.local_devices()``).
+
+    On CUDA every visible card, ``cuda:0 … cuda:{k-1}``.  On the CPU ``n``
+    shards of the one CPU device (1 when ``n`` is None): the counterpart of
+    the JAX tests' ``--xla_force_host_platform_device_count``, whose shards
+    run in turn."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev] * max(1, n or 1)

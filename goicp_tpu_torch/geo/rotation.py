@@ -164,11 +164,18 @@ def _cube_max_angle(c, s, k_outer: int, k_side: int):
     return torch.where(ok, torch.minimum(tight, yang), yang)
 
 
+def deflation_factor(max_angle):
+    """``2·sin(min(θ,π)/2)`` per node, with glibc's ``sinf``
+    (``fused.sincos_libm``), as the jitted JAX function rounds it: the
+    factor of every point's rotation radius."""
+    return 2.0 * sincos_libm(torch.clamp(max_angle, max=math.pi) / 2.0)[0]
+
+
 def rotation_displacement(max_angle, norms):
     """Per-point rotation uncertainty radius ``[B,N]``:
-    ``2·sin(min(θ,π)/2)·|p|`` (``jly_goicp.cpp:159``)."""
-    half = torch.clamp(max_angle, max=math.pi) / 2.0
-    return (2.0 * torch.sin(half))[..., None] * norms[None, :]
+    ``2·sin(min(θ,π)/2)·|p|`` (``jly_goicp.cpp:159``), bit-equal to the
+    jitted JAX function (:func:`deflation_factor`)."""
+    return deflation_factor(max_angle)[..., None] * norms[None, :]
 
 
 def random_rotations(n: int, rng) -> np.ndarray:

@@ -4,14 +4,17 @@
   with per-pair padded clouds;
 - :func:`register_pairs` runs the certified Go-ICP of every pair: the
   lockstep driver (:mod:`goicp_tpu_torch.multipair_lockstep`) advances all
-  pairs through one round at a time, and configurations it does not cover
-  solve pair by pair on the single-pair solver.
+  pairs through one round at a time (its pairs split over a pair-axis
+  mesh's devices with ``mesh=``), and configurations it does not cover
+  solve pair by pair on the single-pair solver;
+- :func:`register_pairs_distributed` splits the pairs round-robin over the
+  processes of a ``torch.distributed`` group, each solving its slice with
+  collective-free solvers, and one all-gather gives every process the
+  whole result list.
 
 Correspondences go through K1 (:func:`goicp_tpu_torch.nn.fused.nearest_neighbor_mxu`):
 one launch per ICP iteration for all poses whose pairs share one target
-object (the serving shape), one per distinct target otherwise.  Device
-meshes and :func:`register_pairs_distributed` raise ``NotImplementedError``
-naming the ROADMAP item that adds them.
+object (the serving shape), one per distinct target otherwise.
 """
 
 from __future__ import annotations
@@ -23,9 +26,9 @@ import torch
 
 from goicp_tpu_torch.bnb import BnbParams, GoIcpResult, make_solver
 from goicp_tpu_torch.bnb.params import auto_backend
-from goicp_tpu_torch.bnb.solver import _not_ported
 from goicp_tpu_torch.core.device import resolve_device, to_device
 from goicp_tpu_torch.core.logging import get_logger
+from goicp_tpu_torch.core.metrics import Metrics
 from goicp_tpu_torch.core.types import RigidTransform
 from goicp_tpu_torch.icp import IcpParams, exact_correspondence, run_icp
 
@@ -165,6 +168,7 @@ def register_pairs(
     params: BnbParams = BnbParams(),
     batched: bool = True,
     mesh=None,
+    local: bool = False,
     solver_grid=None,
     tgt_normals=None,
     inits: Optional[Sequence[Optional[RigidTransform]]] = None,
@@ -184,11 +188,12 @@ def register_pairs(
     ``icp_metric="plane"`` (one shared array or one per pair; None =
     estimated per distinct target).  ``inits``: per-pair prior poses,
     pinned as multistart seeds — the solve stays globally optimal.
-    ``mesh`` other than None raises ``NotImplementedError``."""
+    ``mesh``: a single-axis :class:`~goicp_tpu_torch.dist.sharding.Mesh`
+    over which the lockstep splits its pairs.  ``local``: the per-pair
+    solvers stay collective-free under a process group (work already split
+    between processes)."""
     from goicp_tpu_torch import multipair_lockstep
 
-    if mesh is not None:
-        _not_ported("a pair-axis device mesh", "Distribution")
     p = params
     lockstep_ok = (
         batched
@@ -201,8 +206,8 @@ def register_pairs(
     )
     if lockstep_ok:
         return multipair_lockstep._register_pairs_lockstep(
-            pairs, p, tgt_normals=tgt_normals, inits=inits, pad_src_to=pad_src_to,
-            device=device,
+            pairs, p, mesh=mesh, tgt_normals=tgt_normals, inits=inits,
+            pad_src_to=pad_src_to, device=device,
         )
     if batched and len(pairs) >= 2:
         get_logger().info(
@@ -222,7 +227,7 @@ def register_pairs(
 
     return [
         make_solver(
-            s, t, params, grid=solver_grid, normals=_nrm(i), device=device,
+            s, t, params, grid=solver_grid, normals=_nrm(i), device=device, local=local,
         ).run(None if inits is None else inits[i])
         for i, (s, t) in enumerate(pairs)
     ]
@@ -245,6 +250,75 @@ def lockstep_compatible(p: BnbParams, n_src: int, n_tgt: int) -> bool:
     )
 
 
-def register_pairs_distributed(*args, **kwargs) -> List[GoIcpResult]:
-    """Pairs sharded across processes (``multipair.py:283``): not ported."""
-    _not_ported("register_pairs_distributed", "Distribution")
+_COUNT_BASE = 1 << 20   # counters ride the f32 record as (hi, lo) base-2^20 pairs
+
+
+def register_pairs_distributed(
+    pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    params: BnbParams = BnbParams(),
+    batched: bool = True,
+    mesh=None,
+    tgt_normals=None,
+    inits: Optional[Sequence[Optional[RigidTransform]]] = None,
+    device=None,
+) -> List[GoIcpResult]:
+    """Every pair's globally-optimal registration, the pairs split over the
+    processes of the default ``torch.distributed`` group
+    (``multipair.py:283``).  Process ``i`` solves ``pairs[i::P]`` with
+    :func:`register_pairs` (``local=True``: no collectives inside), on
+    ``cuda:{i % device_count}`` by default, then one all-gather of a
+    25-float record per pair gives every process the whole list.
+    ``GoIcpResult.metrics`` is filled only for the pairs solved here.
+    Without a group of more than one process this is
+    :func:`register_pairs`."""
+    from goicp_tpu_torch.dist.multihost import allgather_np, rank_and_size, rank_device
+
+    pid, P = rank_and_size()
+    if P <= 1:
+        return register_pairs(pairs, params, batched=batched, mesh=mesh,
+                              tgt_normals=tgt_normals, inits=inits, device=device)
+    n = len(pairs)
+    mine = list(range(pid, n, P))
+    local = register_pairs(
+        [pairs[i] for i in mine], params, batched=batched, local=True, mesh=mesh,
+        tgt_normals=([tgt_normals[i] for i in mine]
+                     if isinstance(tgt_normals, (list, tuple)) else tgt_normals),
+        inits=None if inits is None else [inits[i] for i in mine],
+        device=rank_device(device),
+    ) if mine else []
+
+    # [R 9 | t 3 | sse mse converged gap wall | rot_nodes trans_nodes
+    # icp_iters rounds as (hi, lo) pairs]: counters exact through 2^40
+    def enc(v: int):
+        return float(v // _COUNT_BASE), float(v % _COUNT_BASE)
+
+    per = -(-n // P)
+    buf = np.full((per, 25), np.nan, np.float32)
+    for row, res in enumerate(local):
+        buf[row, 0:9] = np.asarray(res.transform.R, np.float32).reshape(9)
+        buf[row, 9:12] = np.asarray(res.transform.t, np.float32)
+        buf[row, 12:17] = (res.sse, res.mse, float(res.converged), res.gap, res.wall_s)
+        buf[row, 17:25] = (*enc(res.rot_nodes), *enc(res.trans_nodes),
+                           *enc(res.icp_iters), *enc(res.rounds))
+    allb = allgather_np(buf)                                # [P, per, 25]
+
+    results: List[Optional[GoIcpResult]] = [None] * n
+    for row, i in enumerate(mine):
+        results[i] = local[row]
+    for src_pid in range(P):
+        if src_pid == pid:
+            continue
+        for row, i in enumerate(range(src_pid, n, P)):
+            r = allb[src_pid, row]
+
+            def dec(k):
+                return int(r[k]) * _COUNT_BASE + int(r[k + 1])
+
+            results[i] = GoIcpResult(
+                transform=RigidTransform(r[0:9].reshape(3, 3).astype(np.float32),
+                                         r[9:12].astype(np.float32)),
+                sse=float(r[12]), mse=float(r[13]), converged=bool(r[14] > 0.5),
+                gap=float(r[15]), rot_nodes=dec(17), trans_nodes=dec(19),
+                icp_iters=dec(21), rounds=dec(23), wall_s=float(r[16]), metrics=Metrics(),
+            )
+    return results

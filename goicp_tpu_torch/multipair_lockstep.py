@@ -15,6 +15,12 @@ XLA's order and takes glibc's sine (:func:`_deflate_pair`), so ub and lb
 are the same bits on the card and the CPU, and the JAX package's on its
 CPU.  Rotation angles are the host's ``rotparam.max_angle``: the lockstep
 has no center-aware bound.
+
+A pair-axis mesh (``register_pairs(mesh=…)``, any single-axis
+:class:`~goicp_tpu_torch.dist.sharding.Mesh`) splits the pairs into equal
+contiguous groups, one per mesh device, each group's bounds and refine on
+its device end to end with no collectives (``multipair_lockstep.py:407``);
+every pair takes the same steps as unsharded.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ from goicp_tpu_torch.bnb.split import classify_split
 from goicp_tpu_torch.core.device import resolve_device, to_device
 from goicp_tpu_torch.core.metrics import Metrics
 from goicp_tpu_torch.core.types import RigidTransform
+from goicp_tpu_torch.dist.sharding import on_device
 from goicp_tpu_torch.geo.normals import estimate_normals
-from goicp_tpu_torch.geo.rotation import random_rotations
+from goicp_tpu_torch.geo.rotation import deflation_factor, random_rotations
 from goicp_tpu_torch.icp import IcpParams
 from goicp_tpu_torch.multipair import PairTargets, _icp_pairs_run, _pad_sources, _pair_normals
 from goicp_tpu_torch.nn import fused
@@ -47,19 +54,11 @@ _SQRT3 = float(np.sqrt(3.0))
 _INF = float("inf")
 
 
-def _rot_factor(ang):
-    """``2·sin(min(θ, π)/2)``, the per-node factor of the rotation radius
-    (``geo/rotation.py:rotation_displacement``), with glibc's ``sinf`` as
-    XLA's CPU build calls it (:func:`~goicp_tpu_torch.nn.fused.sincos_libm`),
-    so the card and the CPU give the same bits."""
-    return 2.0 * fused.sincos_libm(torch.clamp(ang, max=math.pi) / 2.0)[0]
-
-
 def _deflate_pair(d2, w, norms, slack: float, af, t_s, mask, h: int, trim: bool):
     """Per-pair bound epilogue (``multipair_lockstep.py:76``): Yang et al.
     eq. 10 deflation of exact per-point distances ``d2 [M, Np]`` by
-    ``af [M]`` (:func:`_rot_factor`) and the translation corner radius, then
-    weighted sums in XLA's order (:func:`~goicp_tpu_torch.nn.fused.ordered_row_sum`),
+    ``af [M]`` (:func:`~goicp_tpu_torch.geo.rotation.deflation_factor`)
+    and the translation corner radius, then weighted sums in XLA's order (:func:`~goicp_tpu_torch.nn.fused.ordered_row_sum`),
     or trimmed sums over the ``h`` smallest terms by the bisection, its sum
     ordered likewise.  Padded points carry weight 0 (untrimmed) or +inf
     (trimmed), so they neither add nor take inlier slots."""
@@ -95,7 +94,7 @@ def _bounds_one_pair(src, w, norms, tgt, slack, R, ang, t_c, t_s, mask, h, trim:
     tiles, tile_norms = _target_tiles(tgt, 256)
     pts = src[None] @ R.transpose(-1, -2) + t_c[:, None, :]          # [M,N,3]
     d2 = _exact_min_d2(pts, tiles, tile_norms)
-    return _deflate_pair(d2, w, norms, slack, _rot_factor(ang), t_s, mask, h, trim)
+    return _deflate_pair(d2, w, norms, slack, deflation_factor(ang), t_s, mask, h, trim)
 
 
 def _bounds_one_pair_mxu(src, w, norms, tgt, slack, R, ang, t_c, t_s, mask, h, trim: bool,
@@ -107,7 +106,7 @@ def _bounds_one_pair_mxu(src, w, norms, tgt, slack, R, ang, t_c, t_s, mask, h, t
     caller that evaluates the pair every round."""
     srcT, wm = packed or (fused.pack_sources(src), fused.pack_targets(tgt))
     d2 = fused.min_d2_nodes(srcT, wm, fused.pack_params(R, t_c))     # [M, Np]
-    return _deflate_pair(d2, w, norms, slack, _rot_factor(ang), t_s, mask, h, trim)
+    return _deflate_pair(d2, w, norms, slack, deflation_factor(ang), t_s, mask, h, trim)
 
 
 class _PairBatch:
@@ -230,6 +229,27 @@ def _fetch(*tensors):
     return out
 
 
+def _pair_groups(pairs, N: int, mesh, batch: _PairBatch, normals):
+    """``[(lo, hi, batch)]``: the whole batch, or with a pair-axis mesh one
+    batch per mesh device over pairs ``lo:hi`` (``multipair_lockstep.py:407``)."""
+    P = len(pairs)
+    if mesh is None:
+        return [(0, P, batch)]
+    devs = list(mesh.devices.flat)
+    if P % len(devs):
+        from goicp_tpu_torch.core.logging import get_logger
+
+        get_logger().warning(
+            "pair count %d does not divide over %d mesh devices; running the lockstep "
+            "unsharded", P, len(devs))
+        return [(0, P, batch)]
+    per = P // len(devs)
+    return [(g * per, (g + 1) * per,
+             _PairBatch(pairs[g * per:(g + 1) * per], N, torch.device(d),
+                        None if normals is None else normals[g * per:(g + 1) * per]))
+            for g, d in enumerate(devs)]
+
+
 def _register_pairs_lockstep(
     pairs: Sequence[Tuple[np.ndarray, np.ndarray]], p: BnbParams, mesh=None,
     tgt_normals=None,
@@ -238,7 +258,9 @@ def _register_pairs_lockstep(
     device=None,
     use_kernel: Optional[bool] = None,
 ) -> List[GoIcpResult]:
-    """The lockstep driver (``multipair_lockstep.py:188``): coarse-to-fine
+    """The lockstep driver (``multipair_lockstep.py:188``), its pairs split
+    over ``mesh``'s devices when given (a pair count that does not divide
+    warns and runs unsharded): coarse-to-fine
     multistart ICP of every (pair × seed) with the identity and each pair's
     prior pinned, then BnB rounds for all live pairs at once, up to
     ``pipeline_depth`` rounds queued (a round's refine runs when it is
@@ -248,10 +270,6 @@ def _register_pairs_lockstep(
     buckets; exact, padded rows weigh 0).  ``use_kernel``: the bounds' K4
     form (None: on a CUDA device; True on the CPU runs K4's plain version,
     which the card's K4 equals bit for bit)."""
-    from goicp_tpu_torch.bnb.solver import _not_ported
-
-    if mesh is not None:
-        _not_ported("a pair-axis device mesh", "Distribution")
     dev = resolve_device(device)
     t_start = time.perf_counter()
     P = len(pairs)
@@ -394,6 +412,7 @@ def _register_pairs_lockstep(
         slack = 0.0
     if use_kernel is None:
         use_kernel = dev.type == "cuda"
+    groups = _pair_groups(pairs, N, mesh, batch, nrm)
 
     def dispatch():
         """Pop and expand every live pair's best nodes and queue the round's
@@ -439,20 +458,29 @@ def _register_pairs_lockstep(
             t_all[b, :C] = child[:, 4:7]
             ts_all[b, :C] = child[:, 7]
             mask_all[b, :C] = True
-        ub, lb, R_d, t_d = _pairs_bounds(batch, slack, R_all, ang_all, t_all, ts_all,
-                                         mask_all, h, trim=trim, use_kernel=use_kernel)
+        parts = []
+        for lo, hi, bt in groups:
+            with on_device(bt.device):
+                parts.append(_pairs_bounds(
+                    bt, slack, R_all[lo:hi], ang_all[lo:hi], t_all[lo:hi], ts_all[lo:hi],
+                    mask_all[lo:hi], h[lo:hi], trim=trim, use_kernel=use_kernel))
         gate = (p.icp_refine_factor * best_sse).astype(np.float32)
-        return {"childs": childs, "R_all": R_all, "active": active, "ub": ub, "lb": lb,
-                "R": R_d, "t": t_d, "gate": gate}
+        return {"childs": childs, "R_all": R_all, "active": active, "parts": parts,
+                "gate": gate}
 
     def absorb(work):
         """Refine one queued round, fetch it in one copy; update incumbents,
         prune, push.  Threshold convergence fires here; the gap rule is
         tested only when no round is queued (``settled_gap_check``)."""
-        refined = _pairs_refine(batch, work["ub"], work["R"], work["t"], work["gate"],
-                                work["active"], refine_k=p.refine_top_k,
-                                icp_params=icp_params_round)
-        ub, lb, R_ref, t_ref, sse_ref, it_ref = _fetch(work["ub"], work["lb"], *refined)
+        fetched = []
+        for (lo, hi, bt), (ub_g, lb_g, R_g, t_g) in zip(groups, work["parts"]):
+            with on_device(bt.device):
+                live = [b - lo for b in work["active"] if lo <= b < hi]
+                refined = _pairs_refine(bt, ub_g, R_g, t_g, work["gate"][lo:hi], live,
+                                        refine_k=p.refine_top_k, icp_params=icp_params_round)
+                fetched.append(_fetch(ub_g, lb_g, *refined))
+        ub, lb, R_ref, t_ref, sse_ref, it_ref = (
+            np.concatenate([f[i] for f in fetched]) for i in range(6))
         R_all = work["R_all"]
         for b in work["active"]:
             child = work["childs"][b]

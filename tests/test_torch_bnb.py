@@ -168,33 +168,22 @@ def test_params_from_dict_round_trips():
     dict(icp_exact_max=50),
 ])
 def test_out_of_slice_options_raise(clouds, kw, tmp_path):
-    """Options outside the port raise, naming the ROADMAP item: only device
-    meshes on the SE(3) engine now.  The trimmed path, unscreened R-rounds
-    (K4), the plane metric, the exact and grid bound backends, targets
-    above ``mxu_max``/``icp_exact_max``, the nested engine and checkpoints
-    are in the port: those cases must solve on the CPU path instead (on a
-    32³ grid where one is built; the checkpoint is written)."""
+    """No option is outside the port any more: device meshes on the SE(3)
+    engine (here 2 CPU shards), the trimmed path, unscreened R-rounds (K4),
+    the plane metric, the exact and grid bound backends, targets above
+    ``mxu_max``/``icp_exact_max``, the nested engine and checkpoints all
+    solve on the CPU path (on a 32³ grid where one is built; the checkpoint
+    is written)."""
     src, tgt, _, _ = clouds
-    if kw in IN_SLICE:
-        if "checkpoint_path" in kw:
-            kw = dict(kw, checkpoint_path=str(tmp_path / kw["checkpoint_path"]),
-                      checkpoint_every=1)
-        res = register(src, tgt, BnbParams(mse_threshold=1e-5, max_rounds=3, se3_pop=64,
-                                           grid_resolution=32, rot_pop=4, inner_levels=3,
-                                           **kw),
-                       device="cpu")
-        assert res.rounds > 0 and np.isfinite(res.sse) and res.rot_nodes > 0
-        if "checkpoint_path" in kw:
-            assert os.path.exists(kw["checkpoint_path"])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        register(src, tgt, BnbParams(**kw), device="cpu")
-
-
-IN_SLICE = (dict(trim_fraction=0.1), dict(bound_backend="mxu", screen=False),
-            dict(icp_metric="plane"), dict(bound_backend="grid"),
-            dict(bound_backend="exact"), dict(mxu_max=50), dict(icp_exact_max=50),
-            dict(engine="nested"), dict(checkpoint_path="ck.npz"))
+    if "checkpoint_path" in kw:
+        kw = dict(kw, checkpoint_path=str(tmp_path / kw["checkpoint_path"]),
+                  checkpoint_every=1)
+    res = register(src, tgt, BnbParams(mse_threshold=1e-5, max_rounds=3, se3_pop=64,
+                                       grid_resolution=32, rot_pop=4, inner_levels=3, **kw),
+                   device="cpu")
+    assert res.rounds > 0 and np.isfinite(res.sse) and res.rot_nodes > 0
+    if "checkpoint_path" in kw:
+        assert os.path.exists(kw["checkpoint_path"])
 
 
 def test_default_device_is_cuda(clouds, monkeypatch):

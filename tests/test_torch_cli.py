@@ -155,35 +155,24 @@ def test_main_on_the_cpu_with_a_profile(scene, capsys):
     ("", "{ck}"),
 ], ids=["full_cert", "nested", "mesh", "checkpoint_path", "--checkpoint"])
 def test_unported_options_refused_before_solving(scene, extra, arg, monkeypatch):
-    """Device meshes on the SE(3) engine are refused when the solver is
-    built, before any solving.  ``full_cert``, the nested engine and the
-    checkpoint (from the TOML or ``--checkpoint``) are in the port now:
-    those scenarios solve on the CPU path, and the checkpoint is written.
-    (The full-cloud target is 10× the threshold, so the whole-cloud solve
-    keeps its threshold: at the default target it would halve it.)"""
-    from goicp_tpu_torch.bnb import se3
-
+    """No option is refused any more: ``full_cert``, the nested engine, a
+    device mesh (``mesh_cubes = 2``: two CPU shards) and the checkpoint
+    (from the TOML or ``--checkpoint``) solve on the CPU path, and the
+    checkpoint is written.  (The full-cloud target is 10× the threshold, so
+    the whole-cloud solve keeps its threshold: at the default target it
+    would halve it.)"""
     d, cfg, _, _ = scene
     ck = str(d / f"ck_{abs(hash(extra + str(arg)))}.npz")
     extra, arg = extra.replace("{ck}", ck), arg and arg.replace("{ck}", ck)
-    if "mesh" not in extra:
-        out = cli.run_scenario(cfg(4, extra + "\ncheckpoint_every = 1"), str(d / "in_slice"),
-                               checkpoint=arg, device="cpu")
-        assert np.isfinite(out["sse"]) and out["converged"]
-        if "full_cert" in extra:
-            assert out["gap_full"] is not None and out["sse_full"] == out["sse"]
-        if "nested" in extra:
-            assert out["metrics"]["count/rot_nodes"] == out["rot_nodes"]
-        if "checkpoint" in extra or arg:
-            assert os.path.exists(ck) or out["rot_nodes"] == 0
-        return
-
-    def no_solve(*a, **k):
-        raise AssertionError("a refused option reached the solve")
-
-    monkeypatch.setattr(se3.GoIcpSolverSE3, "run", no_solve)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.run_scenario(cfg(4, extra), str(d / "refused"), checkpoint=arg, device="cpu")
+    out = cli.run_scenario(cfg(4, extra + "\ncheckpoint_every = 1"), str(d / "in_slice"),
+                           checkpoint=arg, device="cpu")
+    assert np.isfinite(out["sse"]) and out["converged"]
+    if "full_cert" in extra:
+        assert out["gap_full"] is not None and out["sse_full"] == out["sse"]
+    if "nested" in extra:
+        assert out["metrics"]["count/rot_nodes"] == out["rot_nodes"]
+    if "checkpoint" in extra or arg:
+        assert os.path.exists(ck) or out["rot_nodes"] == 0
 
 
 def test_default_device_is_cuda(scene, monkeypatch):

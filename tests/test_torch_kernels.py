@@ -729,3 +729,92 @@ def test_lockstep_icp_k1_launches(cuda, shared):
     loops = int(iters.max())
     assert loops > 1
     assert fused.launches["nearest_neighbor_mxu"] == loops * (1 if shared else P)
+
+
+# distribution (goicp_tpu_torch.dist): the mesh round on one card listed
+# twice ([cuda:0] × 2) runs each cube shard's kernels (K4 on "mxu", K2 or
+# K5 on "screen") on exactly the nodes of its slice, so its bounds equal
+# the single-device round's bit for bit; a point-sharded mesh sums its
+# shards' partials and agrees to rtol 1e-5 + atol 1e-5
+def _mesh_round_inputs(rng, dev, M=4096, n=1518, nt=1797):
+    from goicp_tpu_torch.bnb.bounds import BoundsEvaluator
+    from goicp_tpu_torch.geo.rotation import random_rotations
+
+    src = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32), device=dev)
+    tgt = torch.as_tensor(rng.uniform(-0.5, 0.5, (nt, 3)).astype(np.float32), device=dev)
+    jobs = [torch.as_tensor(x, device=dev) for x in (
+        random_rotations(M, rng), rng.uniform(0.01, 0.6, M).astype(np.float32),
+        rng.uniform(-0.1, 0.1, (M, 3)).astype(np.float32),
+        rng.uniform(0.005, 0.1, M).astype(np.float32))]
+    mask = torch.ones(M, dtype=torch.bool, device=dev)
+    mask[-100:] = False
+    return src, BoundsEvaluator(src).norms, tgt, jobs, mask
+
+
+@pytest.mark.parametrize("backend,shape,trim", [
+    ("mxu", (2, 1), 0.0), ("screen", (2, 1), 0.0), ("screen", (4, 1), 0.25),
+    ("mxu", (4, 1), 0.25), ("mxu", (1, 2), 0.0), ("mxu", (2, 2), 0.25)])
+def test_mesh_round_on_card(cuda, backend, shape, trim):
+    from goicp_tpu_torch.bnb import se3_eval
+    from goicp_tpu_torch.dist.se3 import make_sharded_se3_round, pad_points
+    from goicp_tpu_torch.dist.sharding import make_mesh
+    from goicp_tpu_torch.icp import IcpParams
+
+    rng = np.random.default_rng(41)
+    src, norms, tgt, (R, ang, t_c, t_s), mask = _mesh_round_inputs(rng, cuda)
+    N = src.shape[0]
+    h = int(round(N * (1 - trim))) if trim else 0
+    _, lb_open = se3_eval.se3_round_bounds(src, norms, tgt, 0.0, float("inf"), R, ang, t_c,
+                                           t_s, mask, h=h, backend="mxu")
+    thresh = float(lb_open[mask].median()) if backend == "screen" else float("inf")
+    ref = se3_eval.se3_round_bounds(src, norms, tgt, 0.0, thresh, R, ang, t_c, t_s, mask, h=h,
+                                    backend=backend)
+    n_c, n_p = shape
+    sp, nrm = pad_points(src.cpu().numpy(), norms.cpu().numpy(), n_p, 128)
+    rnd = make_sharded_se3_round(make_mesh(n_c, n_p, devices=[cuda] * (n_c * n_p)), h=h,
+                                 n_valid=N, lookup="nearest", backend=backend, tile=128,
+                                 refine_k=8, icp_params=IcpParams(max_iter=4),
+                                 icp_backend="exact")
+    fused.reset_launch_counts()
+    got = rnd.bounds(torch.as_tensor(sp, device=cuda), torch.as_tensor(nrm, device=cuda), None,
+                     tgt, 0.0, thresh, R, ang, t_c, t_s, mask)
+    torch.cuda.synchronize()
+    kern = ("bounds_nodes_trimmed" if trim else "bounds_nodes") if backend == "screen" \
+        else "min_d2_nodes"
+    assert fused.launches[kern] == n_c * n_p
+    if n_p == 1:
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    else:
+        for g, r in zip(got, ref):
+            fin = torch.isfinite(r)
+            assert torch.equal(fin, torch.isfinite(g))
+            torch.testing.assert_close(g[fin], r[fin], rtol=1e-5, atol=1e-5)
+
+
+def test_two_process_solve_on_card(cuda, tmp_path):
+    """Two processes of the frontier-sharded solve on the one card (gloo
+    for the exchanges): both converge to the same pose at the truth, and
+    equal the same two-process solve on the CPU in rounds and local nodes."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_torch_multihost.py")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        outs = [tmp_path / f"{dev}_{r}.json" for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, worker, "solve", str(r), "2", str(tmp_path / f"store_{dev}"),
+             str(outs[r]), json.dumps({"device": dev})],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+        for pr in procs:
+            out, _ = pr.communicate(timeout=600)
+            assert pr.returncode == 0, out.decode()[-3000:]
+        runs[dev] = [json.load(open(o)) for o in outs]
+    for r in runs["cuda"]:
+        assert r["converged"] and r["rmse_vs_gt"] < 1e-3, r
+        assert r["R"] == runs["cuda"][0]["R"]
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        assert (g["rounds"], g["local_nodes"]) == (c["rounds"], c["local_nodes"]), (g, c)

@@ -320,13 +320,44 @@ def test_lockstep_pipelined_budget_exit(rng):
 
 
 def test_mesh_and_distributed_not_ported(rng):
+    """Both are ported: a pair-axis mesh gives the unsharded results, and
+    ``register_pairs_distributed`` without a process group is
+    ``register_pairs`` (``tests/test_torch_multihost.py`` runs it at two
+    processes)."""
+    from goicp_tpu_torch.dist.sharding import Mesh, device_array
+
     pairs, _ = _rigid_pairs(rng, 2, 40)
-    with pytest.raises(NotImplementedError, match="item 6|Distribution"):
-        mp.register_pairs(pairs, BnbParams(), mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        ml._register_pairs_lockstep(pairs, BnbParams(), mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        mp.register_pairs_distributed(pairs, BnbParams())
+    p = BnbParams(mse_threshold=1e-4, se3_pop=32, max_rounds=10, init_multistart=4)
+    ref = mp.register_pairs(pairs, p, device=CPU)
+    for got in (mp.register_pairs(pairs, p, device=CPU,
+                                  mesh=Mesh(device_array([CPU] * 2), ("pairs",))),
+                mp.register_pairs_distributed(pairs, p, device=CPU)):
+        assert [(r.rounds, r.rot_nodes, r.icp_iters, r.sse) for r in got] == \
+            [(r.rounds, r.rot_nodes, r.icp_iters, r.sse) for r in ref]
+
+
+@pytest.mark.parametrize("n_dev,trim", [(2, 0.0), (4, 0.0), (2, 0.2), (3, 0.0)])
+def test_register_pairs_mesh_equals_unsharded(rng, n_dev, trim):
+    """``tests/test_multipair.py``'s pair-mesh case on CPU shards: four
+    pairs split over a (``n_dev``,) pair mesh, untrimmed and trimmed, give
+    the unsharded lockstep's results exactly (rounds, nodes, ICP
+    iterations, sse and pose bits) and land on the truth; 3 devices do not
+    divide 4 pairs, so that case warns and runs unsharded."""
+    from goicp_tpu_torch.dist.sharding import Mesh, device_array
+
+    pairs, gts = _rigid_pairs(rng, 4, 100)
+    p = BnbParams(mse_threshold=1e-4, se3_pop=32, max_rounds=40, trim_fraction=trim)
+    ref = mp.register_pairs(pairs, p, device=CPU)
+    got = mp.register_pairs(pairs, p, device=CPU,
+                            mesh=Mesh(device_array([CPU] * n_dev), ("pairs",)))
+    assert len(got) == 4
+    for a, b, (s, _), (R_gt, t_gt) in zip(got, ref, pairs, gts):
+        assert (a.rounds, a.rot_nodes, a.icp_iters, a.converged) == \
+            (b.rounds, b.rot_nodes, b.icp_iters, b.converged)
+        assert a.sse == b.sse
+        np.testing.assert_array_equal(np.asarray(a.transform.R), np.asarray(b.transform.R))
+        if not trim:
+            assert _rmse(s, a.transform.R, a.transform.t, R_gt, t_gt) < 5e-3
 
 
 # ---------------------------------------------------------------------------

@@ -57,3 +57,26 @@ def test_cube_angle_bound_bit_equal_to_jitted_jax():
     assert _bits_differ(got, ref) == 0
     yang = np.minimum(np.float32(1.7320508075688772) * s, np.float32(np.pi))
     assert 0 < int((got < yang).sum()) < got.size
+
+
+def test_rotation_displacement_bit_equal_to_jitted_jax():
+    """The deflation's per-point rotation radius ``2·sin(min(θ,π)/2)·‖p‖``
+    over 120,000 angles in [0, π] (and beyond π, clamped) with random
+    norms: bit-equal to the jitted JAX function, as is the screened
+    evaluators' factor ``af``.  ATen's sine differs on some of them."""
+    from goicp_tpu.geo.rotation import rotation_displacement as jax_disp
+    from goicp_tpu_torch.geo.rotation import deflation_factor, rotation_displacement
+
+    rng = np.random.default_rng(23)
+    ang = np.concatenate([rng.uniform(0.0, np.pi, 120_000),
+                          [0.0, np.pi, 4.0, 1e-6, np.pi / 2]]).astype(np.float32)
+    norms = rng.uniform(0.0, 2.0, 7).astype(np.float32)
+    ref = np.asarray(jax.jit(jax_disp)(ang, norms))
+    got = rotation_displacement(torch.from_numpy(ang), torch.from_numpy(norms)).numpy()
+    assert got.shape == (ang.size, norms.size)
+    assert _bits_differ(got, ref) == 0
+    af_ref = np.asarray(jax.jit(lambda a: 2.0 * jnp.sin(jnp.minimum(a, jnp.pi) / 2.0))(ang))
+    assert _bits_differ(deflation_factor(torch.from_numpy(ang)).numpy(), af_ref) == 0
+    aten = (2.0 * torch.sin(torch.clamp(torch.from_numpy(ang), max=np.pi) / 2.0)).numpy()
+    assert _bits_differ(aten, af_ref) > 0
+
