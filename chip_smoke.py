@@ -22,7 +22,13 @@ Phases, each of which fails the run:
    6,144 targets); K5 screened trimmed bounds there too (and on its route
    above 6,144 targets); K6 screened trimmed grouped bounds at se3_pop
    groups and at 263 groups of Np = 4,096; K7 screened grouped bounds (no
-   solver path calls K7);
+   solver path calls K7); the kernel forms (``variant=``, on no solver
+   path): K4 "exp" and "dot" at the largest R-round bucket and on the ring
+   route (64 nodes x 20,000 targets), K1 "exp" and "dot" through
+   ``min_d2_padded(want_idx=True)`` at the refine's 8 poses, and K3 "exp"
+   at se3_pop groups, each bit-equal to its plain version, with the max
+   |Δd²| (and K1's share of differing indices) against the diff form's
+   kernel and the diff kernel's time beside its own;
 4. a certified solve of the in-repo bunny pair through ``register`` (K1,
    K2, K3 must launch), with the pose error against the ground truth;
 4b. a trimmed (trim 0.25) certified solve of a partial-overlap bunny pair
@@ -154,6 +160,15 @@ TRIM_WALL_S = 60.0              # BnB budget of the trimmed solve (4b), which do
 SCREEN_WALL_S = 30.0            # BnB budget of the trimmed solve on the screen backend
 PROFILE_TRIM_WALL_S = 30.0      # BnB budget of the traced trimmed solve (--profile)
 K1_RESIDENT_MAX = 6144          # csrc/nn_min_d2.cu kResidentMax: K1's targets in shared memory
+# The distance forms (``variant=``) of K1/K4 and K3, FP32 instructions per
+# (query, target) pair: diff 7 (3 subtractions, a multiply, 2 FMAs, the min;
+# the bound the diff rows use), exp 4 (3 FMAs, the min), dot 6 (a multiply,
+# 2 FMAs, 2 adds, the min); K3 per (point, target) pair and group of 8
+# siblings: diff 22, exp 19 (3 FMAs and 8 × (add, min)).
+FORM_OPS = {"diff": 7.0, "exp": 4.0, "dot": 6.0}
+K3_FORM_OPS = {"diff": 22.0, "exp": 19.0}
+FORMS_RING_NODES, FORMS_RING_TARGETS = 64, 20000
+FORM_NOTE = "0 on any path (check only): no solver path passes variant= (goicp_tpu/nn/mxu.py:1050)"
 
 
 def smi(query: str) -> str:
@@ -385,7 +400,8 @@ def check_k3(chk, dev, S, T, rng, clock_hz, G, tag=""):
     Q = ((S @ Rg.transpose(1, 2))[:, None] + t8[:, :, None]).reshape(-1, 3)   # [8G·N, 3]
     lib = library_min_ms(Q, T)
     del Q
-    b, by = bound_ms(4.0 * (3 * N + 3 * NT + 48 * G + 8 * G * N), 22.0 * G * N * NT, clock_hz)
+    b, by = bound_ms(4.0 * (3 * N + 3 * NT + 48 * G + 8 * G * N), K3_FORM_OPS["diff"] * G * N * NT,
+                     clock_hz)
     return _rec(f"K3 min_d2_groups (8-sibling grouped distances){tag}",
                 "goicp_tpu_torch/csrc/min_d2_grouped.cu", "goicp_tpu/nn/mxu.py:265",
                 err, ms, plain, b, by, lib, f"{G} groups x 8 x {N} points x {NT} targets",
@@ -528,7 +544,8 @@ def check_k4(chk, dev, S, T, rng, clock_hz, B, tag=""):
     Q = (S @ Rb.transpose(1, 2) + tb[:, None]).reshape(-1, 3)            # [B·N, 3]
     lib = library_min_ms(Q, T)
     del Q
-    b, by = bound_ms(4.0 * (16 * B + 3 * N + 3 * NT + B * srcT.shape[1]), 7.0 * B * N * NT, clock_hz)
+    b, by = bound_ms(4.0 * (16 * B + 3 * N + 3 * NT + B * srcT.shape[1]),
+                     FORM_OPS["diff"] * B * N * NT, clock_hz)
     # the ring route: 20,000 targets do not stay resident in shared memory
     Bg, NTg = 64, 20000
     wm_g = fused.pack_targets(torch.rand(NTg, 3, device=dev) * 2.0 - 1.0)
@@ -540,7 +557,7 @@ def check_k4(chk, dev, S, T, rng, clock_hz, B, tag=""):
                f"K4{tag} ring route {Bg} nodes {N}x{NTg}: max |d2 err| "
                f"{float((got - ref).abs().max()):.3g} (tol 0: bit-equal)")
     bg, byg = bound_ms(4.0 * (16 * Bg + 3 * N + 3 * NTg + Bg * srcT.shape[1]),
-                       7.0 * Bg * N * NTg, clock_hz)
+                       FORM_OPS["diff"] * Bg * N * NTg, clock_hz)
     ring = dict(ms=timed_ms(lambda: fused.min_d2_nodes(srcT, wm_g, p_g), 5),
                 plain_ms=timed_ms(lambda: fused.min_d2_nodes_plain(srcT, wm_g, p_g), 2),
                 bound_ms=bg, bound_by=byg, shape=f"{Bg} nodes x {N} points x {NTg} targets")
@@ -798,6 +815,165 @@ def check_rotation_bound(chk, dev):
     return out
 
 
+
+
+def once_ms(fn):
+    """``(fn(), its CUDA-event ms)`` from one call: for the plain versions
+    of the forms, whose f64 fused multiply-adds take seconds at the
+    headline's shapes, so the check's own call is the one timed."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def check_forms(chk, dev, S, T, rng, clock_hz, B, G, lib_k4, lib_k3):
+    """The exp and dot forms of K4 (at the largest R-round bucket, B nodes,
+    and on the ring route: 64 nodes x 20,000 targets), of K1 over node
+    poses (``min_d2_padded(want_idx=True)`` at the in-round refine's 8
+    poses) and the exp form of K3 (G groups): each bit-equal to its plain
+    version (tol 0), with the max |Δd²| against the diff form's kernel on
+    the same inputs (and K1's share of differing indices), kernel, diff
+    and plain times and the bound by the forms' instruction counts
+    (``FORM_OPS``).  ``lib_k4``/``lib_k3``: the torch.cdist times of the
+    K4 and K3 rows, the same function on the same shapes in this run.
+    Launch counts are reset first; returns one record per form."""
+    import torch
+
+    from goicp_tpu_torch.nn import fused
+
+    N, NT = S.shape[0], T.shape[0]
+    srcT, wm = fused.pack_sources(S), fused.pack_targets(T)
+    Np, Mp = srcT.shape[1], wm.shape[0]
+    Rb, tb, _, _ = node_batch(rng, B, dev)
+    params = fused.pack_params(Rb, tb)
+    fused.reset_launch_counts()
+    recs = {}
+    diff_k4 = fused.min_d2_nodes(srcT, wm, params)
+    diff_k4_ms = timed_ms(lambda: fused.min_d2_nodes(srcT, wm, params), 10)
+    wm_g = fused.pack_targets(torch.rand(FORMS_RING_TARGETS, 3, device=dev) * 2.0 - 1.0)
+    p_g = params[:FORMS_RING_NODES].contiguous()
+    Bg = FORMS_RING_NODES
+    for v in ("exp", "dot"):
+        got = fused.min_d2_nodes(srcT, wm, params, variant=v)
+        torch.cuda.synchronize()
+        ref, plain = once_ms(lambda: fused.min_d2_nodes_plain(srcT, wm, params, variant=v))
+        same = bool(torch.equal(got, ref))
+        chk.expect(same, f"K4 {v} bunny {B} nodes {N}x{NT}: bit-equal to the plain version "
+                         f"(max |d2 err| {float((got - ref).abs().max()):.3g}, tol 0)")
+        delta = float((got[:, :N] - diff_k4[:, :N]).abs().max())
+        ms = timed_ms(lambda: fused.min_d2_nodes(srcT, wm, params, variant=v), 10)
+        b, by = bound_ms(4.0 * (16 * B + 3 * N + 3 * NT + B * Np), FORM_OPS[v] * B * N * NT,
+                         clock_hz)
+        got_g = fused.min_d2_nodes(srcT, wm_g, p_g, variant=v)
+        torch.cuda.synchronize()
+        ref_g, plain_g = once_ms(lambda: fused.min_d2_nodes_plain(srcT, wm_g, p_g, variant=v))
+        chk.expect(bool(torch.equal(got_g, ref_g)) and wm_g.shape[0] > K1_RESIDENT_MAX,
+                   f"K4 {v} ring route {Bg} nodes {N}x{FORMS_RING_TARGETS}: bit-equal to the "
+                   "plain version (tol 0)")
+        bg, byg = bound_ms(4.0 * (16 * Bg + 3 * N + 3 * FORMS_RING_TARGETS + Bg * Np),
+                           FORM_OPS[v] * Bg * N * FORMS_RING_TARGETS, clock_hz)
+        ring = dict(ms=timed_ms(lambda: fused.min_d2_nodes(srcT, wm_g, p_g, variant=v), 5),
+                    plain_ms=plain_g, bound_ms=bg, bound_by=byg,
+                    shape=f"{Bg} nodes x {N} points x {FORMS_RING_TARGETS} targets")
+        recs[f"K4 {v}"] = _rec(
+            f"K4 min_d2_nodes, variant={v!r} (per-node distances, no index)",
+            "goicp_tpu_torch/csrc/nn_min_d2.cu", "goicp_tpu/nn/mxu.py:176 (via min_d2_nodes :361)",
+            float((got - ref).abs().max()), ms, plain, b, by, lib_k4,
+            f"{B} nodes x {N} points x {NT} targets",
+            library_call=f"torch.cdist + amin over the {B * N} transformed queries, in chunks "
+                         "of 2^19 (the K4 row's time)",
+            max_abs_diff_vs_diff_form=delta, diff_form_ms=diff_k4_ms,
+            ms_over_diff_form=ms / diff_k4_ms, bound_share=b / ms, ring_route=ring,
+            path_note=FORM_NOTE)
+        report(f"K4 {v}", recs[f"K4 {v}"])
+        report(f"K4 {v} ring route", dict(ring, library_ms=None))
+
+    # K1 over node poses at the in-round refine's shape: 8 poses near the identity
+    from goicp_tpu_torch.geo.rotation import axis_angle_rotation
+
+    P1 = 8
+    R1 = axis_angle_rotation(torch.as_tensor(rng.uniform(-0.2, 0.2, (P1, 3)).astype(np.float32),
+                                             device=dev))
+    t1 = torch.as_tensor(rng.uniform(-0.02, 0.02, (P1, 3)).astype(np.float32), device=dev)
+    p1 = fused.pack_params(R1, t1)
+    nq = P1 * Np
+    d_diff, i_diff = fused.min_d2_padded(p1, srcT, wm, want_idx=True, variant="diff")
+    diff_k1_ms = device_ms(lambda: fused.min_d2_padded(p1, srcT, wm, want_idx=True,
+                                                       variant="diff"), 100, clock_hz)
+    Q = (S[None] @ R1.transpose(1, 2) + t1[:, None]).reshape(-1, 3)
+    lib_k1 = device_ms(lambda: torch.cdist(Q, T).min(dim=1), 20, clock_hz)
+    route = fused.nn_route(nq, Mp, fused._sm_count(dev.index or 0))
+    for v in ("exp", "dot"):
+        d2, idx = fused.min_d2_padded(p1, srcT, wm, want_idx=True, variant=v)
+        torch.cuda.synchronize()
+        (d2_p, idx_p), plain = once_ms(
+            lambda: fused.min_d2_padded_plain(p1, srcT, wm, want_idx=True, variant=v))
+        chk.expect(bool(torch.equal(d2, d2_p) and torch.equal(idx, idx_p)),
+                   f"K1 {v} refine {P1}x{N} queries x {NT} targets (min_d2_padded, want_idx): "
+                   "d2 and indices bit-equal to the plain version (tol 0)")
+        delta = float((d2[:, :N] - d_diff[:, :N]).abs().max())
+        idx_share = float((idx[:, :N] != i_diff[:, :N]).float().mean())
+        ms = device_ms(lambda: fused.min_d2_padded(p1, srcT, wm, want_idx=True, variant=v), 100,
+                       clock_hz)
+        b, by = bound_ms(4.0 * (16 * P1 + 3 * N + 3 * NT + 2 * nq), FORM_OPS[v] * nq * NT,
+                         clock_hz)
+        recs[f"K1 {v}"] = _rec(
+            f"K1 min_d2_padded(want_idx=True), variant={v!r} (node poses, index), "
+            f"{P1} poses x {N} points x {NT} targets",
+            "goicp_tpu_torch/csrc/nn_min_d2.cu", "goicp_tpu/nn/mxu.py:152",
+            float((d2 - d2_p).abs().max()), ms, plain, b, by, lib_k1,
+            f"{nq} queries ({P1} x {Np} packed) x {NT} targets",
+            library_call="torch.cdist + min (two calls) over the transformed queries",
+            max_abs_diff_vs_diff_form=delta, idx_differ_share_vs_diff_form=idx_share,
+            diff_form_ms=diff_k1_ms, ms_over_diff_form=ms / diff_k1_ms, bound_share=b / ms,
+            launch_route=dict(splits=route[0], queries_per_thread=route[1]),
+            timing="device time per call (device_ms)", path_note=FORM_NOTE)
+        report(f"K1 {v}", recs[f"K1 {v}"])
+
+    # K3's exp form at the T-round shape
+    Rg = axis_angle_rotation(torch.as_tensor(
+        rng.uniform(-np.pi, np.pi, (G, 3)).astype(np.float32), device=dev))
+    t8 = torch.as_tensor(rng.uniform(-0.3, 0.3, (G, 8, 3)).astype(np.float32), device=dev)
+    gp = fused.pack_group_params(Rg, t8)
+    diff_k3 = fused.min_d2_groups(srcT, wm, gp)
+    diff_k3_ms = timed_ms(lambda: fused.min_d2_groups(srcT, wm, gp), 10)
+    got = fused.min_d2_groups(srcT, wm, gp, variant="exp")
+    torch.cuda.synchronize()
+    ref, plain = once_ms(lambda: fused.min_d2_groups_plain(srcT, wm, gp, variant="exp"))
+    chk.expect(bool(torch.equal(got, ref)), f"K3 exp bunny {G} groups {N}x{NT}: bit-equal to "
+                                            "the plain version (tol 0)")
+    ms = timed_ms(lambda: fused.min_d2_groups(srcT, wm, gp, variant="exp"), 10)
+    b, by = bound_ms(4.0 * (3 * N + 3 * NT + 48 * G + 8 * G * N), K3_FORM_OPS["exp"] * G * N * NT,
+                     clock_hz)
+    recs["K3 exp"] = _rec(
+        "K3 min_d2_groups, variant='exp' (8-sibling grouped distances)",
+        "goicp_tpu_torch/csrc/min_d2_grouped.cu", "goicp_tpu/nn/mxu.py:265",
+        float((got - ref).abs().max()), ms, plain, b, by, lib_k3,
+        f"{G} groups x 8 x {N} points x {NT} targets",
+        library_call=f"torch.cdist + amin over the {8 * G * N} transformed queries, in chunks "
+                     "of 2^19 (the K3 row's time)",
+        max_abs_diff_vs_diff_form=float((got.reshape(G * 8, Np)[:, :N]
+                                         - diff_k3.reshape(G * 8, Np)[:, :N]).abs().max()),
+        diff_form_ms=diff_k3_ms, ms_over_diff_form=ms / diff_k3_ms, bound_share=b / ms,
+        path_note=FORM_NOTE)
+    report("K3 exp", recs["K3 exp"])
+    for key, counter in (("K4 exp", "min_d2_nodes_exp"), ("K4 dot", "min_d2_nodes_dot"),
+                         ("K1 exp", "min_d2_padded_exp"), ("K1 dot", "min_d2_padded_dot"),
+                         ("K3 exp", "min_d2_groups_exp")):
+        recs[key]["check_launches"] = fused.launches[counter]
+    print("forms: " + json.dumps({k: dict(ms=r["ms"], diff_form_ms=r["diff_form_ms"],
+                                          bound_ms=r["bound_ms"],
+                                          max_abs_diff_vs_diff_form=r["max_abs_diff_vs_diff_form"])
+                                  for k, r in recs.items()}), flush=True)
+    return recs
+
+
 def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop, h_trim, big_src):
     """Phase 3: every kernel against its plain version, with its times.
     Returns the per-kernel records (without launch counts)."""
@@ -823,6 +999,12 @@ def kernel_checks(chk, dev, src, tgt, clock_hz, se3_pop, h_trim, big_src):
     fused.reset_launch_counts()
     rec["K7"] = check_k7(chk, dev, S, T, rng, clock_hz, se3_pop)
     rec["K7"]["check_launches"] = fused.launches["bounds_groups"]
+    rec["K7"]["path_note"] = ("the phase 3 check only: no solver path calls it "
+                              "(goicp_tpu/bnb/se3_eval.py:436)")
+    t0 = time.perf_counter()
+    rec.update(check_forms(chk, dev, S, T, rng, clock_hz, 8 * se3_pop, se3_pop,
+                           rec["K4"]["library_ms"], rec["K3"]["library_ms"]))
+    print(f"forms check: {time.perf_counter() - t0:.1f} s", flush=True)
     return rec
 
 
@@ -2767,6 +2949,11 @@ KERNELS = (
     ("K5 full cert", "bounds_nodes_trimmed", "trimmed screen full cert"),
     ("K6", "bounds_groups_trimmed", "trimmed screen solve"),
     ("K7", "bounds_groups", None),
+    ("K4 exp", "min_d2_nodes_exp", None),
+    ("K4 dot", "min_d2_nodes_dot", None),
+    ("K1 exp", "min_d2_padded_exp", None),
+    ("K1 dot", "min_d2_padded_dot", None),
+    ("K3 exp", "min_d2_groups_exp", None),
     ("K4 lockstep", "min_d2_nodes", "lockstep"),
     ("K1 lockstep", "nearest_neighbor_mxu", "lockstep"),
     ("K4 mesh shard", "min_d2_nodes", "mesh rounds"),
@@ -2894,8 +3081,7 @@ def main() -> int:
 
         if phase is None:
             r["launches"] = r.pop("check_launches")
-            r["launches_from"] = ("the phase 3 check only: no solver path calls it "
-                                  "(goicp_tpu/bnb/se3_eval.py:436)")
+            r["launches_from"] = r.pop("path_note")
         else:
             r["launches"] = count(phases[phase])
             r["launches_from"] = (phase if shape is None and k5_shape is None

@@ -2,11 +2,13 @@
 //
 // Every product and sum below is written with the round-to-nearest
 // intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never contracts
-// into FMAs.  The kernels then round exactly as the plain PyTorch versions
-// in nn/fused.py do (one rounding per operation), so a kernel and its plain
+// into FMAs, and every fused multiply-add with __fmaf_rn where the plain
+// version has one (nn/fused.py: fma).  The kernels then round exactly as
+// the plain PyTorch versions in nn/fused.py do, so a kernel and its plain
 // version agree bit for bit on every per-point distance and the same
-// nearest target wins.  The cost is two extra instructions per pair
-// (9 instead of 7 with FMA contraction), a trade recorded in PERF.md.
+// nearest target wins.  The cost in the "diff" form is two extra
+// instructions per pair (9 instead of 7 with FMA contraction), a trade
+// recorded in PERF.md.
 
 #pragma once
 
@@ -27,6 +29,22 @@ __device__ __forceinline__ float finf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float dot3(float x, float y, float z,
                                       float r0, float r1, float r2) {
   return fadd(fadd(fmul(x, r0), fmul(y, r1)), fmul(z, r2));
+}
+
+// The distance forms of mxu.py's _min_d2_kernel (`variant=`): "diff" (the
+// default, (m - q)·(m - q) by dist2), "exp" (|m|² - 2q·m by three FMAs,
+// |q|² added after the min) and "dot" (the 8-wide contraction [m, 1, |m|²]
+// · [-2q, |q|², 1]).  The exp and dot forms round as XLA's CPU build
+// rounds the interpreted JAX kernel: it contracts each product into the sum
+// that follows (dot3c), as nn/fused.py's plain versions do with fma.
+enum Form : int { kDiff = 0, kExp = 1, kDot = 2 };
+
+__device__ __forceinline__ float ffma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+
+// x*r0 + y*r1 + z*r2 as XLA's CPU build contracts it: fma(z, r2, fma(x, r0, y*r1)).
+__device__ __forceinline__ float dot3c(float x, float y, float z,
+                                       float r0, float r1, float r2) {
+  return ffma(z, r2, ffma(x, r0, fmul(y, r1)));
 }
 
 // |w - q|² in the "diff" form of nn/mxu.py: ((dx² + dy²) + dz²).
@@ -54,11 +72,15 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The grouped kernels' separable form (mxu.py:_min_d2_grouped_kernel): for
 // u = R_g·p and the group's 8 sibling translations t_j,
-//     best[j] = min over m of (|u - m|² + b_j[m]),  b_j[m] = |t_j|² - 2 t_j·m.
-// `gp` is the group's parameter row (R×9 at 0, t8×24 at 9, |t_j|²×8 at 33).
-// The CTA stages kGrTile targets at a time into `tw`, with all 8 b_j[m] in
-// `tb`, so b_j is computed once per (group, target) per CTA.  Every thread
-// calls it (it syncs).
+//     best[j] = min over m of (G[m] + b_j[m]),  b_j[m] = |t_j|² - 2 t_j·m,
+// with the base plane G[m] = |u - m|² ("diff"), or |m|² - 2u·m ("exp": the
+// caller passes (ux, uy, uz) = -2u, three FMAs; |u|² joins in
+// grouped_d2_exp).  `gp` is the group's
+// parameter row (R×9 at 0, t8×24 at 9, |t_j|²×8 at 33).  The CTA stages
+// kGrTile targets at a time into `tw` (x, y, z, and |m|² for "exp"), with
+// all 8 b_j[m] in `tb`, so b_j is computed once per (group, target) per
+// CTA.  Every thread calls it (it syncs).
+template <int FORM = kDiff>
 __device__ __forceinline__ void grouped_min(float (&best)[8], float4* tw,
                                             float4 (*tb)[2], const float* gp,
                                             const float* wm, int Mp, float ux,
@@ -71,12 +93,13 @@ __device__ __forceinline__ void grouped_min(float (&best)[8], float4* tw,
     for (int k = threadIdx.x; k < n; k += blockDim.x) {
       const float* w = wm + static_cast<size_t>(m0 + k) * 8;
       const float wx = w[0], wy = w[1], wz = w[2];
-      tw[k] = make_float4(wx, wy, wz, 0.f);
+      tw[k] = make_float4(wx, wy, wz, FORM == kExp ? w[4] : 0.f);
       float b[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float s = dot3(gp[9 + 3 * j], gp[10 + 3 * j], gp[11 + 3 * j],
-                             wx, wy, wz);
+        const float s = FORM == kExp
+            ? dot3c(gp[9 + 3 * j], gp[10 + 3 * j], gp[11 + 3 * j], wx, wy, wz)
+            : dot3(gp[9 + 3 * j], gp[10 + 3 * j], gp[11 + 3 * j], wx, wy, wz);
         b[j] = fsub(gp[33 + j], fmul(2.f, s));
       }
       tb[k][0] = make_float4(b[0], b[1], b[2], b[3]);
@@ -84,7 +107,9 @@ __device__ __forceinline__ void grouped_min(float (&best)[8], float4* tw,
     }
     __syncthreads();
     for (int k = 0; k < n; ++k) {
-      const float G = dist2(tw[k], ux, uy, uz);
+      const float4 m = tw[k];
+      const float G = FORM == kExp ? ffma(uz, m.z, ffma(uy, m.y, ffma(ux, m.x, m.w)))
+                                   : dist2(m, ux, uy, uz);
       const float4 b0 = tb[k][0], b1 = tb[k][1];
       best[0] = fminf(best[0], fadd(G, b0.x));
       best[1] = fminf(best[1], fadd(G, b0.y));
@@ -99,12 +124,19 @@ __device__ __forceinline__ void grouped_min(float (&best)[8], float4* tw,
 }
 
 // Sibling j's squared distance from its grouped minimum: max(best + a_j, 0)
-// with a_j = 2 t_j·u, added after the min as in the TPU kernel.
+// with a_j = 2 t_j·u, added after the min as in the TPU kernel ("exp":
+// max(best + (a_j + |u|²), 0), with u itself and un = |u|²).
 __device__ __forceinline__ float grouped_d2(const float* gp, int j, float best,
                                             float ux, float uy, float uz) {
   const float a = fmul(2.f, dot3(gp[9 + 3 * j], gp[10 + 3 * j], gp[11 + 3 * j],
                                  ux, uy, uz));
   return fmaxf(fadd(best, a), 0.f);
+}
+__device__ __forceinline__ float grouped_d2_exp(const float* gp, int j, float best,
+                                                float ux, float uy, float uz, float un) {
+  const float a = fmul(2.f, dot3c(gp[9 + 3 * j], gp[10 + 3 * j], gp[11 + 3 * j],
+                                  ux, uy, uz));
+  return fmaxf(fadd(best, fadd(a, un)), 0.f);
 }
 
 // Yang et al. eq. 10 per point, from the squared distance d2:

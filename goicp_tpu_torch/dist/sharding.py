@@ -31,16 +31,11 @@ import math
 import numpy as np
 import torch
 
+from goicp_tpu_torch.bnb.bounds import step_distances, step_terms
 from goicp_tpu_torch.core.device import local_devices
 from goicp_tpu_torch.geo.procrustes import horn_quaternion
 from goicp_tpu_torch.geo.rotation import quat_to_matrix, rotation_displacement
-from goicp_tpu_torch.nn.fused import sqrt_rn
-from goicp_tpu_torch.nn.grid import (
-    DistanceGrid,
-    lookup_index,
-    lookup_sq_nearest,
-    lookup_sq_trilinear,
-)
+from goicp_tpu_torch.nn.grid import DistanceGrid, lookup_index
 
 _SQRT3 = math.sqrt(3.0)
 _INF = float("inf")
@@ -154,14 +149,6 @@ def grid_to(grid: DistanceGrid, dev: torch.device) -> DistanceGrid:
     )
 
 
-def _local_distance(grid: DistanceGrid, pts, lookup: str):
-    if lookup == "trilinear":
-        val, esc = lookup_sq_trilinear(grid, pts)
-    else:
-        val, esc = lookup_sq_nearest(grid, pts)
-    return sqrt_rn(torch.clamp(val, min=0.0)), esc
-
-
 def _points(R, t, src):
     """``R_m·p + t_m`` for every job and point: ``[M, N, 3]``."""
     return src[None] @ R.transpose(-1, -2) + t[:, None, :]
@@ -203,8 +190,9 @@ def sharded_bounds_step(mesh: Mesh, grid: DistanceGrid, *, trim_drop: int = 0,
                         lookup: str = "trilinear", slack: float = 0.0):
     """The sharded bound step (``sharding.py:74``): ``step(src, norms, R,
     max_angle, t_center, t_span, rot_flag, mask) -> (center_val, node_lb)
-    [M]``, the center value and lower bound of ``BoundsEvaluator`` with
-    ``src [N,3]`` split over points and the jobs ``[M,...]`` over cubes."""
+    [M]``, ``bnb.bounds.bounds_step`` with ``src [N,3]`` split over points
+    and the jobs ``[M,...]`` over cubes: each shard's per-point terms are
+    ``bnb.bounds.step_terms``."""
     st = _ShardedStep(mesh, grid)
 
     def step(src, norms, R, max_angle, t_center, t_span, rot_flag, mask):
@@ -214,16 +202,10 @@ def sharded_bounds_step(mesh: Mesh, grid: DistanceGrid, *, trim_drop: int = 0,
             cs, ls = [], []
             for dev, sn, (R_c, ang, tc, ts, flag, _) in row:
                 with on_device(dev):
-                    d, esc = _local_distance(st.grid_on(dev), _points(R_c, tc, sn[:, :3]), lookup)
-                    d_lo = torch.clamp(d - esc - slack, min=0.0)
-                    d_hi = d + esc + slack
-                    gamma_r = rotation_displacement(ang, sn[:, 3]) * flag[:, None]
-                    gamma_t = (_SQRT3 * ts)[:, None]
-                    center_d = torch.where(flag[:, None] > 0, d_lo, d_hi)
-                    cc = torch.clamp(center_d - gamma_r, min=0.0)
-                    lc = torch.clamp(d_lo - gamma_r - gamma_t, min=0.0)
-                    cs.append(cc * cc)
-                    ls.append(lc * lc)
+                    d, esc = step_distances(st.grid_on(dev), sn[:, :3], R_c, tc, lookup)
+                    cc, lc = step_terms(d, esc, slack, ang, sn[:, 3], ts, flag)
+                    cs.append(cc)
+                    ls.append(lc)
             mask_c = row[0][2][5].to(row_dev)
             rows.append(_masked(mask_c, _psum_trimmed(cs, trim_drop, row_dev),
                                 _psum_trimmed(ls, trim_drop, row_dev)))
@@ -264,7 +246,7 @@ def sharded_evaluate_se3(mesh: Mesh, grid: DistanceGrid, *, trim_drop: int = 0,
             us, ls = [], []
             for dev, sn, (R_c, ang, tc, ts, _) in row:
                 with on_device(dev):
-                    d, esc = _local_distance(st.grid_on(dev), _points(R_c, tc, sn[:, :3]), lookup)
+                    d, esc = step_distances(st.grid_on(dev), sn[:, :3], R_c, tc, lookup)
                     d_lo = torch.clamp(d - esc - slack, min=0.0)
                     d_hi = d + esc + slack
                     gamma_r = rotation_displacement(ang, sn[:, 3])

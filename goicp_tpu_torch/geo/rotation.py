@@ -16,7 +16,9 @@ import math
 import numpy as np
 import torch
 
-from goicp_tpu_torch.nn.fused import _sq3_fma, acos_libm, fma, sincos_libm, sqrt_rn
+from goicp_tpu_torch.nn.fused import (
+    _dot3c, _sq3, _sq3_fma, acos_libm, fma, sincos_libm, sqrt_rn,
+)
 
 _SQRT3 = 1.7320508075688772
 
@@ -37,6 +39,81 @@ def quat_to_matrix(q):
     )
 
 
+def _quat_to_matrix_fma(q, ww):
+    """:func:`quat_to_matrix` of ``q = (w, x, y, z)`` with ``w = sqrt(ww)``,
+    as XLA's CPU build rounds it inside a jitted function: it squares the
+    root away (``w·w = ww``) and contracts each product into the sum or
+    difference that follows (the diagonal ``fma(±z, z, fma(±y, y, fma(±x,
+    x, ww)))``, an off-diagonal entry ``2·fma(a, b, ±c·d)``)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+
+    def diag(sx, sy, sz):
+        return fma(sz * z, z, fma(sy * y, y, fma(sx * x, x, ww)))
+
+    def off(a, b, c, d, sign):
+        return 2.0 * fma(a, b, sign * (c * d))
+
+    return torch.stack(
+        [
+            torch.stack([diag(1, -1, -1), off(x, y, w, z, -1), off(x, z, w, y, 1)], -1),
+            torch.stack([off(x, y, w, z, 1), diag(-1, 1, -1), off(y, z, w, x, -1)], -1),
+            torch.stack([off(x, z, w, y, -1), off(y, z, w, x, 1), diag(-1, -1, 1)], -1),
+        ],
+        dim=-2,
+    )
+
+
+def quat_cube_rotation(center):
+    """Quaternion-ball point(s) ``[...,3]`` → rotation matrix ``[...,3,3]``
+    with ``w = sqrt(max(0, 1 − |v|²))`` (``geo/rotation.py:49``); a point
+    outside the ball gives the matrix at the radially clamped point, so
+    callers gate on :func:`quat_cube_in_SO3`.  Rounded as the jitted JAX
+    function (``fused.fma``, ``fused.sqrt_rn``), but for the radial clamp
+    of a point outside the ball, where XLA's CPU build takes its own
+    reciprocal root."""
+    r2 = _sq3_fma(center)[..., None]
+    scale = torch.where(r2 > 1.0, 1.0 / sqrt_rn(torch.clamp(r2, min=1e-30)), 1.0)
+    v = center * scale
+    ww = torch.clamp(1.0 - _sq3_fma(v), min=0.0)
+    return _quat_to_matrix_fma(torch.cat([sqrt_rn(ww)[..., None], v], dim=-1), ww)
+
+
+def quat_cube_in_SO3(center):
+    """``|v| ≤ 1`` (``geo/rotation.py:65``)."""
+    return _sq3_fma(center) <= 1.0
+
+
+def quat_cube_overlaps_SO3(center, span):
+    """Does the cube meet the unit ball: ``Σ max(|v_i| − span, 0)² ≤ 1``
+    (``geo/rotation.py:70``)."""
+    d = torch.clamp(torch.abs(center) - span[..., None], min=0.0)
+    return _sq3_fma(d) <= 1.0
+
+
+def quat_cube_max_angle(center, span):
+    """Max rotation angle between R(center) and R(v) over the cube, ``[B]``
+    (``geo/rotation.py:82``): the 4-D chordal bound ``d² ≤ 3·span² + dw²``
+    over the extreme radii, ``θ = 2·arccos(clip(1 − d²/2, 0, 1))``, never
+    wrapped round the double cover.  Rounded as the jitted JAX function:
+    roots by ``fused.sqrt_rn``, the arc cosine by ``fused.acos_libm``, and
+    each of the three sums of squares in the order XLA's fusion of it takes
+    (tests/test_torch_geo.py: bit-equal on all but 1 of 100,000 cubes)."""
+    s = span[..., None]
+    a = torch.abs(center)
+    lo, hi = torch.clamp(a - s, min=0.0), a + s
+    r_min = sqrt_rn(_dot3c(lo[..., 0], lo[..., 1], lo[..., 2], lo[..., 0], lo[..., 1], lo[..., 2]))
+    r_max = sqrt_rn(_sq3_fma(hi))
+
+    def w_of(r):
+        r = torch.clamp(r, max=1.0)
+        return sqrt_rn(torch.clamp(fma(-r, r, torch.ones_like(r)), min=0.0))
+
+    w0 = w_of(sqrt_rn(_sq3(center)))
+    dw = torch.maximum(w_of(r_min) - w0, w0 - w_of(r_max))
+    d2 = fma(torch.full_like(span, 3.0), span * span, dw * dw)
+    return 2.0 * acos_libm(torch.clamp(1.0 - d2 / 2.0, 0.0, 1.0))
+
+
 def axis_angle_rotation(center):
     """Axis-angle vector(s) ``[...,3]`` → rotation matrix (Rodrigues), by the
     singularity-free quaternion route with a series-safe ``sin(t/2)/t``."""
@@ -46,6 +123,17 @@ def axis_angle_rotation(center):
     sinc_half = torch.where(t < 1e-4, 0.5 - t2 / 48.0, torch.sin(half) / t)
     q = torch.cat([torch.cos(half), center * sinc_half], dim=-1)
     return quat_to_matrix(q)
+
+
+def axis_angle_in_ball(center, span):
+    """Cube-center test against the π-ball: keep the cube if ``|v0| −
+    √3·span ≤ π`` (``geo/rotation.py:128``)."""
+    return sqrt_rn(_sq3_fma(center)) - _SQRT3 * span <= math.pi
+
+
+def axis_angle_max_angle(span):
+    """``min(√3·span, π)`` (``geo/rotation.py:135``)."""
+    return torch.clamp(_SQRT3 * span, max=math.pi)
 
 
 def _xla_linspace(start: float, k: int, dev):

@@ -12,10 +12,14 @@ package's arrays bit for bit.
 Each wrapper (:func:`nearest_neighbor_mxu` K1, :func:`bounds_nodes` K2,
 :func:`min_d2_groups` K3, :func:`min_d2_nodes` K4,
 :func:`bounds_nodes_trimmed` K5, :func:`bounds_groups_trimmed` K6,
-:func:`bounds_groups` K7) runs its CUDA kernel (``csrc/``) for CUDA tensors
-and its plain PyTorch version (``*_plain``) for CPU tensors; there is no
-fallback from one to the other.  Every kernel launch adds one to
-:data:`launches`.
+:func:`bounds_groups` K7, and :func:`min_d2_padded`, K1 over node poses)
+runs its CUDA kernel (``csrc/``) for CUDA tensors and its plain PyTorch
+version (``*_plain``) for CPU tensors; there is no fallback from one to the
+other.  Every kernel launch adds one to :data:`launches`.
+
+K1/K4 and K3 take the TPU kernel's ``variant=`` (:data:`FORMS`): the
+distance forms "diff" (every solver path), "exp" (K1/K4, K3) and "dot"
+(K1/K4).
 """
 
 from __future__ import annotations
@@ -42,7 +46,13 @@ launches = {
     "nearest_neighbor_mxu": 0, "bounds_nodes": 0, "min_d2_groups": 0,
     "min_d2_nodes": 0, "bounds_nodes_trimmed": 0, "bounds_groups_trimmed": 0,
     "bounds_groups": 0,
+    # the forms on no solver path: K4 and K1 over node poses, K3
+    "min_d2_nodes_exp": 0, "min_d2_nodes_dot": 0, "min_d2_padded": 0,
+    "min_d2_padded_exp": 0, "min_d2_padded_dot": 0, "min_d2_groups_exp": 0,
 }
+# the distance forms of mxu.py's _min_d2_kernel (`variant=`), by the code
+# csrc/common.cuh gives them
+FORMS = {"diff": 0, "exp": 1, "dot": 2}
 # K1's launches by (queries, targets), reset with them
 nn_launch_shapes = collections.Counter()
 
@@ -89,6 +99,27 @@ def fma(a, b, c):
     toward = torch.copysign(torch.full_like(s, _INF), e)
     s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
     return s.float()
+
+
+_F32_MID = 1 << 28            # the low 29 bits of an f32 midpoint's f64 significand
+_F32_TINY = 2.0 ** -126       # below: f32 subnormals, whose midpoints lie elsewhere
+
+
+def fma_bulk(a, b, c):
+    """:func:`fma`'s bits at a fraction of its passes over large tensors:
+    ``c + a·b`` in f64 (the product is exact) rounded to f32, which is the
+    correctly rounded result unless the f64 sum sits exactly on an f32
+    midpoint (rounding to f64 never crosses one); those elements, and f32
+    subnormal results, take :func:`fma`.  Pass the operands unexpanded
+    (they broadcast here).  It synchronises a CUDA stream once."""
+    s = torch.addcmul(c.double(), a.double(), b.double())
+    out = s.float()
+    odd = ((s.view(torch.int64) & (2 * _F32_MID - 1)) == _F32_MID) \
+        | ((s.abs() < _F32_TINY) & (s != 0))
+    if bool(odd.any()):
+        a, b, c = torch.broadcast_tensors(a, b, c)
+        out[odd] = fma(a[odd], b[odd], c[odd])
+    return out
 
 
 def sqrt_rn(x):
@@ -198,6 +229,13 @@ def acos_libm(x):
     out = torch.where(hx < 0, _PI_F - (z - _PI_LO_F), z)
     out = torch.where(ix == 0, _PIO2_F, out)
     return torch.where(iy == 0, torch.where(hx < 0, _PI_F, y), out)
+
+
+def _dot3c(a0, a1, a2, b0, b1, b2):
+    """``a0·b0 + a1·b1 + a2·b2`` as XLA's CPU build contracts it inside an
+    elementwise fusion (the interpreted ``exp``/``dot`` kernels):
+    ``fma(a2, b2, fma(a0, b0, a1·b1))`` (``csrc/common.cuh: dot3c``)."""
+    return fma(a2, b2, fma(a0, b0, a1 * b1))
 
 
 def _sq3_fma(v):
@@ -388,23 +426,70 @@ def _transform(params, srcT):
     return qx, qy, qz
 
 
+def _form_queries(params, srcT, variant: str):
+    """The query side of a form for node poses, ``[B, Np]`` each: q
+    (diff, :func:`_transform`), or −2q and |q|² (exp, dot) with q and |q|²
+    contracted as XLA's CPU build contracts the interpreted kernel
+    (``csrc/nn_min_d2.cu``: ``NodeQueries``, ``min_d2_body``)."""
+    if variant == "diff":
+        return (*_transform(params, srcT), None)
+    px, py, pz = srcT[0][None], srcT[1][None], srcT[2][None]
+    q = [_dot3c(px, py, pz, *(params[:, 3 * r + k:3 * r + k + 1] for k in range(3)))
+         + params[:, 9 + r:10 + r] for r in range(3)]
+    return (-2.0 * q[0], -2.0 * q[1], -2.0 * q[2], _dot3c(*q, *q))
+
+
+def _form_pairs(q, w, variant: str):
+    """The form's value for queries ``q`` (``[n, 1]`` each, from
+    :func:`_form_queries`) against the target rows ``w [m, 8]``:
+    ``[n, m]``, whose minimum over targets is d² (diff, dot) or d² − |q|²
+    (exp) (``csrc/nn_min_d2.cu: pair_d2``)."""
+    qx, qy, qz, qn = q
+    wx, wy, wz, m2 = (w[None, :, k] for k in (0, 1, 2, 4))
+    if variant == "diff":
+        dx, dy, dz = wx - qx, wy - qy, wz - qz
+        return (dx * dx + dy * dy) + dz * dz
+    if variant == "exp":
+        return fma_bulk(qz, wz, fma_bulk(qy, wy, fma_bulk(qx, wx, m2)))
+    return (fma_bulk(qz, wz, fma_bulk(qy, wy, wx * qx)) + qn) + m2
+
+
+def _min_pairs_plain(q, wm, variant: str = "diff", want_idx: bool = False, tile: int = 512):
+    """Min over targets of the form's value for the queries ``q`` (tensors
+    of any one shape, from :func:`_form_queries`), chunked over queries
+    and targets; with ``want_idx`` also the earliest target index at the
+    minimum (``argmin`` takes the first in a tile, a strict ``<`` keeps the
+    earlier tile, as the TPU kernel does)."""
+    shape = q[0].shape
+    q = [None if v is None else v.reshape(-1) for v in q]
+    best = torch.full_like(q[0], _INF)
+    idx = torch.zeros(best.shape, dtype=torch.int32, device=best.device) if want_idx else None
+    qc = max(1, _MAX_ELEMS // tile)
+    for q0 in range(0, best.shape[0], qc):
+        sl = slice(q0, q0 + qc)
+        qs = [None if v is None else v[sl, None] for v in q]
+        b = best[sl]
+        for m0 in range(0, wm.shape[0], tile):
+            v = _form_pairs(qs, wm[m0:m0 + tile], variant)
+            if want_idx:
+                cur, arg = v.min(dim=1)
+                take = cur < b
+                b.copy_(torch.where(take, cur, b))
+                idx[sl] = torch.where(take, arg.int() + m0, idx[sl])
+            else:
+                b.copy_(torch.minimum(b, v.amin(dim=1)))
+    return best.reshape(shape), None if idx is None else idx.reshape(shape)
+
+
 def _min_d2_plain(qx, qy, qz, wm, tile: int = 512):
     """Min over targets of |m − q|² (diff form) for query coordinate
     tensors of any shape; chunked over queries."""
-    shape = qx.shape
-    qx, qy, qz = qx.reshape(-1), qy.reshape(-1), qz.reshape(-1)
-    best = torch.full_like(qx, _INF)
-    qc = max(1, _MAX_ELEMS // tile)
-    for q0 in range(0, qx.shape[0], qc):
-        sl = slice(q0, q0 + qc)
-        b = best[sl]
-        for m0 in range(0, wm.shape[0], tile):
-            w = wm[m0:m0 + tile]
-            dx = w[None, :, 0] - qx[sl, None]
-            dy = w[None, :, 1] - qy[sl, None]
-            dz = w[None, :, 2] - qz[sl, None]
-            b.copy_(torch.minimum(b, ((dx * dx + dy * dy) + dz * dz).amin(dim=1)))
-    return best.reshape(shape)
+    return _min_pairs_plain((qx, qy, qz, None), wm, tile=tile)[0]
+
+
+def _check_form(variant: str, forms=FORMS):
+    if variant not in forms:
+        raise ValueError(f"unknown variant {variant!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -492,18 +577,27 @@ def nearest_neighbor_mxu(queries, targets, packed=None):
 # ---------------------------------------------------------------------------
 
 
-def min_d2_groups_plain(srcT, wm, gparams, tile: int = 512):
-    """Plain version of K3 (``mxu.py:196``, diff form): ``d2 [8G, Np]``."""
+def min_d2_groups_plain(srcT, wm, gparams, tile: int = 512, *, variant: str = "diff"):
+    """Plain version of K3 (``mxu.py:196``): ``d2 [8G, Np]``.  The "exp"
+    form takes the base plane |m|² − 2u·m (three FMAs) and adds |u|² with
+    a_j after the min, its products contracted as XLA's CPU build contracts
+    the interpreted kernel."""
+    _check_form(variant, ("diff", "exp"))
     P = gparams
     G, Np = P.shape[0], srcT.shape[1]
     px, py, pz = srcT[0], srcT[1], srcT[2]
-    ux = _rows(P, 0, px, py, pz)
-    uy = _rows(P, 3, px, py, pz)
-    uz = _rows(P, 6, px, py, pz)                          # [G, Np]
     t = P[:, 9:33].reshape(G, 8, 3)
     tn = P[:, 33:41]
     wx, wy, wz = wm[:, 0], wm[:, 1], wm[:, 2]
-    s = (t[..., 0:1] * wx + t[..., 1:2] * wy) + t[..., 2:3] * wz
+    exp = variant == "exp"
+    if exp:
+        u = [_dot3c(px[None], py[None], pz[None], *(P[:, 3 * r + k:3 * r + k + 1]
+                                                    for k in range(3))) for r in range(3)]
+        s = _dot3c(t[..., 0:1], t[..., 1:2], t[..., 2:3], wx, wy, wz)
+    else:
+        u = [_rows(P, 3 * r, px, py, pz) for r in range(3)]
+        s = (t[..., 0:1] * wx + t[..., 1:2] * wy) + t[..., 2:3] * wz
+    ux, uy, uz = u                                        # [G, Np]
     b = tn[..., None] - 2.0 * s                           # [G, 8, Mp]
     best = torch.full((G, 8, Np), _INF, dtype=torch.float32, device=srcT.device)
     gc = max(1, _MAX_ELEMS // (Np * tile))
@@ -511,23 +605,36 @@ def min_d2_groups_plain(srcT, wm, gparams, tile: int = 512):
         gs = slice(g0, g0 + gc)
         for m0 in range(0, wm.shape[0], tile):
             ms = slice(m0, m0 + tile)
-            dx = wx[None, None, ms] - ux[gs, :, None]
-            dy = wy[None, None, ms] - uy[gs, :, None]
-            dz = wz[None, None, ms] - uz[gs, :, None]
-            Gp = (dx * dx + dy * dy) + dz * dz            # [gc, Np, tile]
+            if exp:
+                Gp = fma_bulk(-2.0 * uz[gs, :, None], wz[ms], fma_bulk(
+                    -2.0 * uy[gs, :, None], wy[ms], fma_bulk(-2.0 * ux[gs, :, None], wx[ms],
+                                                             wm[ms, 4])))
+            else:
+                dx = wx[None, None, ms] - ux[gs, :, None]
+                dy = wy[None, None, ms] - uy[gs, :, None]
+                dz = wz[None, None, ms] - uz[gs, :, None]
+                Gp = (dx * dx + dy * dy) + dz * dz        # [gc, Np, tile]
             for j in range(8):
                 cur = (Gp + b[gs, j, None, ms]).amin(dim=2)
                 best[gs, j] = torch.minimum(best[gs, j], cur)
-    a = 2.0 * ((t[..., 0:1] * ux[:, None] + t[..., 1:2] * uy[:, None])
-               + t[..., 2:3] * uz[:, None])               # [G, 8, Np]
+    if exp:
+        a = 2.0 * _dot3c(t[..., 0:1], t[..., 1:2], t[..., 2:3], ux[:, None], uy[:, None],
+                         uz[:, None]) + _dot3c(*u, *u)[:, None]
+    else:
+        a = 2.0 * ((t[..., 0:1] * ux[:, None] + t[..., 1:2] * uy[:, None])
+                   + t[..., 2:3] * uz[:, None])           # [G, 8, Np]
     return torch.clamp(best + a, min=0.0).reshape(8 * G, Np)
 
 
-def min_d2_groups(srcT, wm, gparams):
+def min_d2_groups(srcT, wm, gparams, variant: str = "diff"):
     """Exact min squared distances for 8-sibling translation groups:
-    ``d2 [8·G, Np]``, row ``8g+j`` = node (R_g, t_{g,j}) (``mxu.py:303``)."""
+    ``d2 [8·G, Np]``, row ``8g+j`` = node (R_g, t_{g,j}) (``mxu.py:303``).
+    ``variant`` is the TPU kernel's distance form, "diff" (every solver
+    path) or "exp"; the port is f32 throughout (TF32 stays off), so there
+    is no precision argument."""
+    _check_form(variant, ("diff", "exp"))
     if not _route("min_d2_groups", srcT, wm, gparams):
-        return min_d2_groups_plain(srcT, wm, gparams)
+        return min_d2_groups_plain(srcT, wm, gparams, variant=variant)
     G, Np, Mp = gparams.shape[0], srcT.shape[1], wm.shape[0]
     _expect("min_d2_groups", srcT, (8, Np))
     _expect("min_d2_groups", wm, (Mp, 8))
@@ -535,10 +642,15 @@ def min_d2_groups(srcT, wm, gparams):
     d2 = torch.empty((8 * G, Np), dtype=torch.float32, device=srcT.device)
     if G == 0:
         return d2
-    _launch("min_d2_groups", kernels.lib().goicp_min_d2_grouped,
-            gparams.data_ptr(), G, srcT.data_ptr(), Np, wm.data_ptr(), Mp,
+    _launch(_form_counter("min_d2_groups", variant), kernels.lib().goicp_min_d2_grouped,
+            gparams.data_ptr(), G, srcT.data_ptr(), Np, wm.data_ptr(), Mp, FORMS[variant],
             d2.data_ptr(), _stream(srcT))
     return d2
+
+
+def _form_counter(name: str, variant: str) -> str:
+    """The launch counter of a wrapper's form: its own name for "diff"."""
+    return name if variant == "diff" else f"{name}_{variant}"
 
 
 # ---------------------------------------------------------------------------
@@ -760,27 +872,57 @@ def k2_plan(B: int, Np: int, Mp: int, warps: int = 0, grid: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def min_d2_nodes_plain(srcT, wm, params):
+def min_d2_nodes_plain(srcT, wm, params, variant: str = "diff"):
     """Plain version of K4 (``mxu.py:361``): ``d2 [B, Np]``."""
-    return torch.clamp(_min_d2_plain(*_transform(params, srcT), wm), min=0.0)
+    return min_d2_padded_plain(params, srcT, wm, want_idx=False, variant=variant)[0]
 
 
-def min_d2_nodes(srcT, wm, params):
+def min_d2_padded_plain(params, srcT, wm, *, want_idx: bool, variant: str = "dot"):
+    """Plain version of ``mxu.py:152 _min_d2_padded``: ``(d2 [B, Np], idx
+    [B, Np] int32 or None)``.  ``idx`` is the earliest target index at the
+    minimum of the form's values, unclamped (0 where nothing beats +inf).
+    "exp" adds |q|² after the min; every form clamps d² at 0."""
+    _check_form(variant)
+    q = _form_queries(params, srcT, variant)
+    best, idx = _min_pairs_plain(q, wm, variant, want_idx)
+    if variant == "exp":
+        best = best + q[3]
+    return torch.clamp(best, min=0.0), idx
+
+
+def min_d2_nodes(srcT, wm, params, variant: str = "diff"):
     """Per-node exact min squared distances ``d2 [B, Np]`` for the queries
-    ``R_b·p + t_b`` (``mxu.py:361``): K1's source without the index."""
-    if not _route("min_d2_nodes", srcT, wm, params):
-        return min_d2_nodes_plain(srcT, wm, params)
+    ``R_b·p + t_b`` (``mxu.py:361``): K1's source without the index.
+    ``variant`` is the TPU kernel's distance form ("diff", every solver
+    path; "exp"; "dot"); the port is f32 throughout (TF32 stays off), so
+    there is no precision argument."""
+    return min_d2_padded(params, srcT, wm, want_idx=False, variant=variant)[0]
+
+
+def min_d2_padded(params, srcT, wm, *, want_idx: bool, variant: str = "dot"):
+    """``mxu.py:152 _min_d2_padded``: ``params [B,16]``, ``srcT [8, Np]``,
+    ``wm [Mp, 8]`` → ``(d2 [B, Np], idx [B, Np] int32 or None)``.  Without
+    the index it is K4 (:func:`min_d2_nodes`); with it, K1's index search
+    over node poses (``nn_route`` picks its launch shape).  The default
+    form is the JAX function's, "dot"; no precision argument (f32
+    throughout, TF32 off)."""
+    _check_form(variant)
+    name = _form_counter("min_d2_padded" if want_idx else "min_d2_nodes", variant)
+    if not _route(name, srcT, wm, params):
+        return min_d2_padded_plain(params, srcT, wm, want_idx=want_idx, variant=variant)
     B, Np, Mp = params.shape[0], srcT.shape[1], wm.shape[0]
-    _expect("min_d2_nodes", srcT, (8, Np))
-    _expect("min_d2_nodes", wm, (Mp, 8))
-    _expect("min_d2_nodes", params, (B, 16))
+    _expect(name, srcT, (8, Np))
+    _expect(name, wm, (Mp, 8))
+    _expect(name, params, (B, 16))
     d2 = torch.empty((B, Np), dtype=torch.float32, device=srcT.device)
+    idx = torch.empty((B, Np), dtype=torch.int32, device=srcT.device) if want_idx else None
     if B == 0:
-        return d2
-    _launch("min_d2_nodes", kernels.lib().goicp_nn_min_d2,
-            params.data_ptr(), B, srcT.data_ptr(), Np, wm.data_ptr(), Mp,
-            d2.data_ptr(), None, _stream(srcT))
-    return d2
+        return d2, idx
+    splits, qr = nn_route(B * Np, Mp, _sm_count(srcT.device.index)) if want_idx else (1, 4)
+    _launch(name, kernels.lib().goicp_nn_min_d2,
+            params.data_ptr(), B, srcT.data_ptr(), Np, wm.data_ptr(), Mp, FORMS[variant],
+            splits, qr, d2.data_ptr(), None if idx is None else idx.data_ptr(), _stream(srcT))
+    return d2, idx
 
 
 # ---------------------------------------------------------------------------

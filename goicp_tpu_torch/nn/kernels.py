@@ -94,13 +94,15 @@ def _build(so_path: str):
 
 
 def _bind(lib):
+    # params, B, srcT, Np, wm, Mp, form, splits, qr, d2, idx, stream
     lib.goicp_nn_min_d2.restype = _i
-    lib.goicp_nn_min_d2.argtypes = [_vp, _i, _vp, _i, _vp, _i, _vp, _vp, _vp]
+    lib.goicp_nn_min_d2.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i, _vp, _vp, _vp]
     # q, Q, t4, Mp, Nt, splits, qr, d2, idx, stream
     lib.goicp_nn_query.restype = _i
     lib.goicp_nn_query.argtypes = [_vp, _i, _vp, _i, _i, _i, _i, _vp, _vp, _vp]
+    # gparams, G, srcT, Np, wm, Mp, form, d2, stream
     lib.goicp_min_d2_grouped.restype = _i
-    lib.goicp_min_d2_grouped.argtypes = [_vp, _i, _vp, _i, _vp, _i, _vp, _vp]
+    lib.goicp_min_d2_grouped.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _vp, _vp]
     # params, B, srcT, Np, wm, Mp, tq, warps, grid, route, state, carry, ub, lb, stream
     lib.goicp_bounds_nodes.restype = _i
     lib.goicp_bounds_nodes.argtypes = [_vp, _i, _vp, _i, _vp, _i, _i, _i, _i, _i, _vp, _vp,

@@ -191,3 +191,151 @@ def test_default_device_is_cuda(clouds, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         register(src, tgt, BnbParams(max_rounds=1))
+
+
+# The grid bound step and the evaluator's host API (bnb/bounds.py:63-190),
+# and the core cube types.  Tolerance: the step sums in ATen's order, as the
+# mesh's sharded step does: rtol 1e-5 + atol 1e-5 (tests/test_torch_dist.py).
+_COVER = np.array([[1.5, 1.5, 1.5], [-1.5, -1.5, -1.5]])
+
+
+@pytest.fixture(scope="module")
+def bound_setup():
+    """tests/test_bnb.py's clouds and grid, in both packages."""
+    from goicp_tpu.bnb import BoundsEvaluator as JEv
+    from goicp_tpu.nn.grid import build_distance_grid as jbuild
+    from goicp_tpu_torch.bnb import BoundsEvaluator
+    from goicp_tpu_torch.nn.grid import build_distance_grid
+
+    rng = np.random.default_rng(7)
+    src = (rng.random((150, 3)).astype(np.float32) - 0.5) * 0.6
+    tgt = (rng.random((180, 3)).astype(np.float32) - 0.5) * 0.6
+    jgrid = jbuild(tgt, n=96, cover=_COVER)
+    grid = build_distance_grid(tgt, n=96, cover=_COVER, device="cpu")
+    return dict(src=src, tgt=tgt, jgrid=jgrid, grid=grid, JEv=JEv, Ev=BoundsEvaluator)
+
+
+def _bound_jobs(rng, B):
+    """B quaternion cubes inside the unit ball and translation cubes:
+    ``(q_c, q_s, R, angle bound, t_c, t_s, rot_flag)``."""
+    from goicp_tpu_torch.geo import rotation as trot
+
+    q_c = (rng.random((B, 3)).astype(np.float32) - 0.5) * 1.2
+    q_s = rng.random(B).astype(np.float32) * 0.2 + 0.02
+    nrm = np.linalg.norm(q_c, axis=1, keepdims=True)
+    q_c = np.where(nrm > 0.9, q_c * 0.9 / nrm, q_c).astype(np.float32)
+    R = trot.quat_cube_rotation(torch.from_numpy(q_c)).numpy()
+    ang = trot.quat_cube_max_angle(torch.from_numpy(q_c), torch.from_numpy(q_s)).numpy()
+    t_c = (rng.random((B, 3)).astype(np.float32) - 0.5) * 0.4
+    t_s = rng.random(B).astype(np.float32) * 0.15 + 0.02
+    flag = (rng.random(B) > 0.5).astype(np.float32)
+    return q_c, q_s, R, ang, t_c, t_s, flag
+
+
+def _close_inf(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    fin = np.isfinite(ref)
+    assert (fin == np.isfinite(got)).all()
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lookup", ["nearest", "trilinear"])
+@pytest.mark.parametrize("h", [150, 120, 40])
+def test_bounds_step_matches_jax(bound_setup, lookup, h):
+    """Untrimmed (h = N), trimmed by dropping the 30 largest terms, and by
+    keeping the 40 smallest (the other branch of the trimmed row sum)."""
+    import jax.numpy as jnp
+
+    from goicp_tpu.bnb.bounds import bounds_step as jstep
+    from goicp_tpu_torch.bnb.bounds import bounds_step
+
+    s = bound_setup
+    rng = np.random.default_rng(60)
+    B = 16
+    _, _, R, ang, t_c, t_s, flag = _bound_jobs(rng, B)
+    mask = np.ones(B, bool)
+    mask[-2:] = False
+    norms = np.linalg.norm(s["src"], axis=1).astype(np.float32)
+    slack = 0.01
+    ref = jstep(jnp.asarray(s["src"]), jnp.asarray(norms), s["jgrid"], jnp.float32(slack),
+                *(jnp.asarray(x) for x in (R, ang, t_c, t_s, flag, mask)), h=h, lookup=lookup)
+    got = bounds_step(torch.from_numpy(s["src"]), torch.from_numpy(norms), s["grid"], slack,
+                      *(torch.from_numpy(x) for x in (R, ang, t_c, t_s, flag, mask)),
+                      h=h, lookup=lookup)
+    for g, r in zip(got, ref):
+        _close_inf(g.numpy(), r)
+
+
+@pytest.mark.parametrize("trim", [0.0, 0.2])
+def test_bounds_evaluator_matches_jax_and_brackets_true_sse(bound_setup, trim):
+    """tests/test_bnb.py:60,92 on the port's evaluator: the center value at
+    flag 0 bounds the true (trimmed) SSE at the center from above, the node
+    lb bounds it from below anywhere in the cube; both within tolerance of
+    the JAX evaluator's, and ``sse_at`` is the center value at flag 0."""
+    s = bound_setup
+    ev = s["Ev"](torch.from_numpy(s["src"]), s["grid"], trim_fraction=trim,
+                 lookup="trilinear", conservative=True)
+    jev = s["JEv"](s["src"], s["jgrid"], trim_fraction=trim, lookup="trilinear",
+                   conservative=True)
+    assert ev.h == jev.h and ev.slack == pytest.approx(jev.slack, rel=1e-12)
+    rng = np.random.default_rng(61)
+    B = 16
+    q_c, q_s, R, ang, t_c, t_s, _ = _bound_jobs(rng, B)
+    zeros, ones = np.zeros(B, np.float32), np.ones(B, bool)
+    ub_cv, _ = ev.evaluate(R, zeros, t_c, zeros, zeros, ones)
+    _, node_lb = ev.evaluate(R, ang, t_c, t_s, np.ones(B, np.float32), ones)
+    assert isinstance(ub_cv, np.ndarray) and ub_cv.shape == (B,)
+    _close_inf(ub_cv, jev.evaluate(R, zeros, t_c, zeros, zeros, ones)[0])
+    _close_inf(node_lb, jev.evaluate(R, ang, t_c, t_s, np.ones(B, np.float32), ones)[1])
+    np.testing.assert_array_equal(ev.sse_at(R, t_c), ub_cv)
+
+    from goicp_tpu_torch.geo.rotation import quat_cube_rotation
+
+    def true_sse(Rm, t):
+        pts = s["src"].astype(np.float64) @ np.asarray(Rm, np.float64).T + t
+        d2 = ((pts[:, None] - s["tgt"][None]) ** 2).sum(-1).min(1)
+        return float(np.sort(d2)[:ev.h].sum())
+
+    for b in range(B):
+        assert ub_cv[b] >= true_sse(R[b], t_c[b]) - 1e-4, b
+        for _ in range(5):
+            qi = (q_c[b] + (rng.random(3) - 0.5) * 2 * q_s[b]).astype(np.float32)
+            if np.linalg.norm(qi) > 1.0:
+                continue
+            Ri = quat_cube_rotation(torch.from_numpy(qi[None]))[0].numpy()
+            dt = ((rng.random(3) - 0.5) * 2 * t_s[b]).astype(np.float32)
+            assert node_lb[b] <= true_sse(Ri, t_c[b] + dt) + 1e-4, b
+
+
+def test_bounds_evaluator_without_grid_refuses_evaluate():
+    from goicp_tpu_torch.bnb import BoundsEvaluator
+
+    ev = BoundsEvaluator(torch.zeros((4, 3)))
+    with pytest.raises(ValueError, match="grid"):
+        ev.sse_at(np.eye(3)[None], np.zeros((1, 3)))
+
+
+def test_cube_batch_and_bounds_match_jax():
+    from goicp_tpu.core import Bounds as JBounds
+    from goicp_tpu.core import CubeBatch as JCubeBatch
+    from goicp_tpu_torch.core import Bounds, CubeBatch
+
+    jr, r = JCubeBatch.root(span=np.pi, ub=7.0), CubeBatch.root(span=np.pi, ub=7.0)
+    assert r.size == jr.size == 1
+    for _ in range(2):
+        jr, r = jr.subdivide(), r.subdivide()
+    rng = np.random.default_rng(62)
+    c = rng.uniform(-1, 1, (5, 3)).astype(np.float32)
+    s = rng.uniform(0.1, 0.5, 5).astype(np.float32)
+    lb, ub = rng.random(5).astype(np.float32), rng.random(5).astype(np.float32) + 1
+    mask = np.array([True, False, True, True, False])
+    jb = JCubeBatch(c, s, lb, ub, mask).subdivide()
+    tb = CubeBatch(*(torch.from_numpy(x) for x in (c, s, lb, ub, mask))).subdivide()
+    for got, ref in ((r, jr), (tb, jb)):
+        assert got.size == ref.size
+        for f in ("center", "span", "lb", "ub", "mask"):
+            g, e = getattr(got, f).numpy(), np.asarray(getattr(ref, f))
+            assert g.dtype == e.dtype and np.array_equal(g, e), f
+    b = Bounds(lb=torch.from_numpy(lb), ub=torch.from_numpy(ub))
+    jb2 = JBounds(lb=lb, ub=ub)
+    assert np.array_equal(b.lb.numpy(), np.asarray(jb2.lb))

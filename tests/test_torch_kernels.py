@@ -818,3 +818,89 @@ def test_two_process_solve_on_card(cuda, tmp_path):
         assert r["R"] == runs["cuda"][0]["R"]
     for g, c in zip(runs["cuda"], runs["cpu"]):
         assert (g["rounds"], g["local_nodes"]) == (c["rounds"], c["local_nodes"]), (g, c)
+
+
+# The exp and dot forms of K1/K4 and the exp form of K3 (``variant=``, on no
+# solver path): each bit-equal to its plain version.  K4: B·Np not a
+# multiple of a CTA's queries, the R-round bucket, the ring of target tiles
+# (above 6,144 targets); K1 over node poses: the refine's 8 poses on the
+# resident route (8 target splits, 1 query a thread), a multistart-sized
+# batch (4 splits, 4 queries), the ring.
+@pytest.mark.parametrize("variant", ["exp", "dot"])
+@pytest.mark.parametrize("B,n,nt", [(37, 300, 700), (21080, 1518, 1797), (16, 1518, 20000)])
+def test_k4_forms(cuda, variant, B, n, nt):
+    rng = np.random.default_rng(14)
+    src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
+    srcT, wm = fused.pack_sources(src), fused.pack_targets(tgt)
+    params = fused.pack_params(*_nodes(rng, B, cuda))
+    fused.reset_launch_counts()
+    got = fused.min_d2_nodes(srcT, wm, params, variant=variant)
+    torch.cuda.synchronize()
+    assert fused.launches[f"min_d2_nodes_{variant}"] == 1 and fused.launches["min_d2_nodes"] == 0
+    assert torch.equal(got, fused.min_d2_nodes_plain(srcT, wm, params, variant=variant))
+
+
+@pytest.mark.parametrize("variant", ["diff", "exp", "dot"])
+@pytest.mark.parametrize("B,n,nt", [(8, 1518, 1797), (64, 1518, 1797), (4, 1518, 20000)])
+def test_k1_forms_with_index(cuda, variant, B, n, nt):
+    rng = np.random.default_rng(15)
+    src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
+    srcT, wm = fused.pack_sources(src), fused.pack_targets(tgt)
+    params = fused.pack_params(*_nodes(rng, B, cuda))
+    d2, idx = fused.min_d2_padded(params, srcT, wm, want_idx=True, variant=variant)
+    torch.cuda.synchronize()
+    d2_p, idx_p = fused.min_d2_padded_plain(params, srcT, wm, want_idx=True, variant=variant)
+    assert torch.equal(d2, d2_p) and torch.equal(idx, idx_p)
+    d2_k4, none = fused.min_d2_padded(params, srcT, wm, want_idx=False, variant=variant)
+    assert none is None and torch.equal(d2_k4, d2)
+
+
+@pytest.mark.parametrize("variant", ["diff", "exp", "dot"])
+def test_k1_forms_ties_and_unpadded_source(cuda, variant):
+    """Every target twice (the earlier twin must win each tie) and a source
+    of Np = 300 columns (not a multiple of 128)."""
+    rng = np.random.default_rng(16)
+    srcT = torch.zeros((8, 300), device=cuda)
+    srcT[:3] = _cloud(rng, 300, cuda).T
+    tgt = _cloud(rng, 350, cuda)
+    wm = fused.pack_targets(torch.cat([tgt, tgt]))
+    params = fused.pack_params(*_nodes(rng, 7, cuda))
+    d2, idx = fused.min_d2_padded(params, srcT, wm, want_idx=True, variant=variant)
+    torch.cuda.synchronize()
+    d2_p, idx_p = fused.min_d2_padded_plain(params, srcT, wm, want_idx=True, variant=variant)
+    assert torch.equal(d2, d2_p) and torch.equal(idx, idx_p)
+    assert bool((idx < 350).all())
+    got = fused.min_d2_nodes(srcT, wm, params, variant=variant)
+    assert torch.equal(got, fused.min_d2_nodes_plain(srcT, wm, params, variant=variant))
+
+
+@pytest.mark.parametrize("G,n,nt", [(5, 300, 700), (263, 1518, 1797), (5, 1518, 20000)])
+def test_k3_exp_form(cuda, G, n, nt):
+    rng = np.random.default_rng(17)
+    src, tgt = _cloud(rng, n, cuda), _cloud(rng, nt, cuda)
+    R, _ = _nodes(rng, G, cuda)
+    t8 = torch.as_tensor(rng.uniform(-0.2, 0.2, (G, 8, 3)).astype(np.float32), device=cuda)
+    srcT, wm = fused.pack_sources(src), fused.pack_targets(tgt)
+    gp = fused.pack_group_params(R, t8)
+    fused.reset_launch_counts()
+    got = fused.min_d2_groups(srcT, wm, gp, variant="exp")
+    torch.cuda.synchronize()
+    assert fused.launches["min_d2_groups_exp"] == 1 and fused.launches["min_d2_groups"] == 0
+    assert torch.equal(got, fused.min_d2_groups_plain(srcT, wm, gp, variant="exp"))
+
+
+def test_forms_empty_batches(cuda):
+    """B = 0 nodes and G = 0 groups launch nothing and return empty results."""
+    rng = np.random.default_rng(18)
+    srcT = fused.pack_sources(_cloud(rng, 300, cuda))
+    wm = fused.pack_targets(_cloud(rng, 700, cuda))
+    fused.reset_launch_counts()
+    for variant in ("exp", "dot"):
+        assert fused.min_d2_nodes(srcT, wm, torch.zeros((0, 16), device=cuda),
+                                  variant=variant).shape == (0, 384)
+        d2, idx = fused.min_d2_padded(torch.zeros((0, 16), device=cuda), srcT, wm,
+                                      want_idx=True, variant=variant)
+        assert d2.shape == idx.shape == (0, 384)
+    assert fused.min_d2_groups(srcT, wm, torch.zeros((0, 48), device=cuda),
+                               variant="exp").shape == (0, 384)
+    assert sum(fused.launches.values()) == 0

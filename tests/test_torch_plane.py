@@ -203,3 +203,50 @@ def test_plane_metric_whole_solve_parity_with_jax(clouds, kw):
     np.testing.assert_allclose(rt.transform.R, np.asarray(rj.transform.R), atol=1e-4)
     np.testing.assert_allclose(rt.sse, rj.sse, rtol=1e-5)
     np.testing.assert_allclose(rt.gap, rj.gap, rtol=1e-5, atol=1e-7)
+
+
+def test_plane_step_stages_against_jitted_jax():
+    """Which stage of the plane step rounds apart from the jitted JAX one
+    (``icp/solver.py:143``), each stage fed the same f32 inputs:
+
+    - the residual ``sum((p − q)·n)``: XLA contracts it as
+      ``fma(d_z, n_z, fma(d_y, n_y, d_x·n_x))``, which ``fused.fma``
+      repeats bit for bit (the port's plain sum differs in about a third);
+    - the Gram matrix ``Jwᵀ J`` over 1,518 points: an XLA CPU dot thunk
+      (Eigen's blocked contraction) against ATen's matmul;
+    - the 6×6 solve: jaxlib's LAPACK ``sgetrf`` and two ``strsm`` against
+      ``torch.linalg.solve``.
+
+    The last two differ in the last bits of (nearly) every system (on an
+    x86 CPU: the Gram matrix of 32 of 32 poses, the solution of 98,068 of
+    the 100,000 systems here), so the step stays within the file's rtol
+    1e-4 + atol 1e-6 and is not bit-equal."""
+    import jax
+
+    from goicp_tpu_torch.nn.fused import fma
+
+    rng = np.random.default_rng(40)
+    d = rng.normal(size=(100_000, 3)).astype(np.float32)
+    n = rng.normal(size=(100_000, 3)).astype(np.float32)
+    rj = np.asarray(jax.jit(lambda d, n: jnp.sum(d * n, axis=-1))(d, n))
+    D, Nn = torch.from_numpy(d), torch.from_numpy(n)
+    r_fma = fma(D[:, 2], Nn[:, 2], fma(D[:, 1], Nn[:, 1], D[:, 0] * Nn[:, 0])).numpy()
+    assert np.array_equal(r_fma.view(np.int32), rj.view(np.int32))
+
+    gram = jax.jit(lambda a, b: jnp.einsum("...ni,...nj->...ij", a, b,
+                                           precision=jax.lax.Precision.HIGHEST))
+    for _ in range(4):
+        Jw = rng.normal(size=(8, 1518, 6)).astype(np.float32)
+        J = rng.normal(size=(8, 1518, 6)).astype(np.float32)
+        Hj = np.asarray(gram(Jw, J))
+        Ht = (torch.from_numpy(Jw).transpose(-1, -2) @ torch.from_numpy(J)).numpy()
+        np.testing.assert_allclose(Ht, Hj, rtol=0, atol=1e-5 * np.abs(Jw).max() * np.abs(J).max()
+                                   * np.sqrt(1518))
+
+    S = 100_000
+    A = rng.normal(size=(S, 60, 6)).astype(np.float32)
+    H = np.einsum("sni,snj->sij", A.astype(np.float64), A).astype(np.float32)
+    g = rng.normal(size=(S, 6)).astype(np.float32)
+    xj = np.asarray(jax.jit(lambda H, g: jnp.linalg.solve(H, g[..., None])[..., 0])(H, g))
+    xt = torch.linalg.solve(torch.from_numpy(H), torch.from_numpy(g)[..., None])[..., 0].numpy()
+    np.testing.assert_allclose(xt, xj, rtol=1e-4, atol=1e-6)
