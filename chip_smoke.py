@@ -29,8 +29,15 @@ Phases, each of which fails the run:
    at se3_pop groups, each bit-equal to its plain version, with the max
    |Δd²| (and K1's share of differing indices) against the diff form's
    kernel and the diff kernel's time beside its own;
+3b. the in-round refine's ICP at its shape (8 poses × 1,518 points
+   against 1,797 targets), each iteration one replay of a CUDA graph,
+   against the eager loop on the same tensors: the headline pair untrimmed
+   and the partial pair trimmed, all poses active and a third gated off;
+   bit-equal R, t, sse and iterations, equal K1 launches, and each loop's
+   host ms per iteration;
 4. a certified solve of the in-repo bunny pair through ``register`` (K1,
-   K2, K3 must launch), with the pose error against the ground truth;
+   K2, K3 must launch), with the pose error against the ground truth and
+   its rounds and nodes against the headline's 431 and 8,947,314;
 4b. a trimmed (trim 0.25) certified solve of a partial-overlap bunny pair
    (the target lacks the 20 % of points of largest x): K1, K4, K3 must
    launch, and the pose must be within the same limits (60 s budget: it
@@ -165,6 +172,8 @@ TRIM = 0.25                     # trim_fraction of the partial-overlap solves
 TRIM_WALL_S = 60.0              # BnB budget of the trimmed solve (4b), which does not converge
 SCREEN_WALL_S = 30.0            # BnB budget of the trimmed solve on the screen backend
 PROFILE_TRIM_WALL_S = 30.0      # BnB budget of the traced trimmed solve (--profile)
+ICP_GRAPH_REPS = 5              # calls of each ICP loop timed at the refine's shape
+HEADLINE_COUNTS = (431, 8947314)  # rounds, nodes of the certified headline at seed 1
 K1_RESIDENT_MAX = 6144          # csrc/nn_min_d2.cu kResidentMax: K1's targets in shared memory
 # The distance forms (``variant=``) of K1/K4 and K3, FP32 instructions per
 # (query, target) pair: diff 7 (3 subtractions, a multiply, 2 FMAs, the min;
@@ -799,6 +808,97 @@ def check_rotation_bound(chk, dev):
     return out
 
 
+
+
+def check_icp_graph(chk, dev, src, tgt, R_gt, t_gt, psrc, ptgt, pR, pt):
+    """The in-round refine's ICP (``icp.run_icp``, each iteration one
+    replay of a CUDA graph) against its eager loop (``icp.solver._run_eager``,
+    the same iteration op by op) on the same CUDA tensors, at the refine's
+    shape (``refine_top_k`` 8 poses × 1,518 source points against 1,797
+    targets, ``refine_max_iter`` 32): the headline pair untrimmed and the
+    partial pair trimmed, each with every pose active and with a third of
+    them gated off.  R, t, sse and iters must be bit-equal and K1's launches
+    equal; the host's wall per iteration of each loop (a call waited for,
+    over the iterations it ran; median of ICP_GRAPH_REPS calls), the first
+    graphed call's (the capture's) and one replay's device time."""
+    import torch
+
+    from goicp_tpu_torch.bnb.params import BnbParams
+    from goicp_tpu_torch.core.types import RigidTransform
+    from goicp_tpu_torch.geo.rotation import random_rotations
+    from goicp_tpu_torch.icp import IcpParams, exact_correspondence, run_icp
+    from goicp_tpu_torch.icp import solver as icp_solver
+    from goicp_tpu_torch.nn import fused
+
+    bp = BnbParams()
+    B, iters_cap = bp.refine_top_k, min(bp.icp_max_iter, bp.refine_max_iter)
+    rng = np.random.default_rng(61)
+    out = {}
+    for label, S_h, T_h, R_h, t_h, trim in (("untrimmed", src, tgt, R_gt, t_gt, 0.0),
+                                           ("trimmed", psrc, ptgt, pR, pt, TRIM)):
+        R0 = random_rotations(B, rng)
+        R0[:2] = R_h
+        t0 = (t_h + rng.normal(0, 0.05, (B, 3))).astype(np.float32)
+        S, T = torch.as_tensor(S_h, device=dev), torch.as_tensor(T_h, device=dev)
+        init = RigidTransform(torch.as_tensor(R0, device=dev), torch.as_tensor(t0, device=dev))
+        params = IcpParams(max_iter=iters_cap, rel_tol=bp.icp_rel_tol, trim_fraction=trim)
+        corr = exact_correspondence(T)
+        for gated in (False, True):
+            key = f"{label}{', gated' if gated else ''}"
+            a0 = torch.as_tensor(np.arange(B) % 3 != 1, device=dev) if gated else None
+
+            def eager():
+                return icp_solver._run_eager(S, corr, init.R, init.t, params, active0=a0)
+
+            def graphed():
+                res = run_icp(S, corr, init, params, active0=a0)
+                return res.transform.R, res.transform.t, res.sse, res.iters
+
+            def walls(fn):
+                """``(outputs, K1 launches, [host ms of each call])``."""
+                ms = []
+                for _ in range(ICP_GRAPH_REPS):
+                    torch.cuda.synchronize()
+                    fused.reset_launch_counts()
+                    t0_ = time.perf_counter()
+                    o = fn()
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0_) * 1e3)
+                return o, fused.launches["nearest_neighbor_mxu"], ms
+
+            misses = icp_solver._icp_graph.cache_info().misses
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            graphed()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0_) * 1e3
+            captured = icp_solver._icp_graph.cache_info().misses - misses
+            e_out, e_k1, e_ms = walls(eager)
+            g_out, g_k1, g_ms = walls(graphed)
+            differ = [name for name, a, b in zip(("R", "t", "sse", "iters"), g_out, e_out)
+                      if not torch.equal(a, b)]
+            n_it = int(e_out[3].max())
+            g = icp_solver._icp_graph(dev.index or 0, B, S.shape[0], T.shape[0],
+                                      float(trim), float(bp.icp_rel_tol))
+            rec = dict(poses=B, points=int(S.shape[0]), targets=int(T.shape[0]),
+                       trim_fraction=trim, iterations=n_it,
+                       iters=[int(x) for x in e_out[3].cpu()],
+                       k1_launches_eager=e_k1, k1_launches_graph=g_k1,
+                       captures_in_first_call=captured, first_call_ms=first_ms,
+                       eager_host_ms_per_iter=float(np.median(e_ms)) / max(n_it, 1),
+                       graph_host_ms_per_iter=float(np.median(g_ms)) / max(n_it, 1),
+                       replay_device_ms=timed_ms(g.graph.replay, 50),
+                       differ=differ)
+            print(f"ICP graph, {key}: " + json.dumps(rec), flush=True)
+            chk.expect(not differ and n_it > 1,
+                       f"ICP graph ({key}, {B} x {S.shape[0]} vs {T.shape[0]}): graphed "
+                       f"refine bit-equal to the eager loop over {n_it} iterations "
+                       f"(differ: {differ or 'none'})")
+            chk.expect(g_k1 == e_k1 == n_it,
+                       f"ICP graph ({key}): K1 launches {g_k1} graphed, {e_k1} eager, "
+                       f"{n_it} iterations")
+            out[key] = rec
+    return out
 
 
 def once_ms(fn):
@@ -2930,6 +3030,7 @@ def main() -> int:
     dev = torch.device("cuda")
     recs = kernel_checks(chk, dev, src, tgt, clock_mhz * 1e6, se3_pop, h_trim, big)
     rot_bound = check_rotation_bound(chk, dev)
+    icp_graph = check_icp_graph(chk, dev, src, tgt, R_gt, t_gt, psrc, ptgt, pR, pt)
     phases = {
         "solve": solve_bunny(chk, dev, "solve", src, tgt, R_gt, t_gt,
                              ("nearest_neighbor_mxu", "bounds_nodes", "min_d2_groups")),
@@ -2941,6 +3042,10 @@ def main() -> int:
             ("nearest_neighbor_mxu", "bounds_nodes_trimmed", "bounds_groups_trimmed"),
             trim=TRIM, bound_backend="screen", max_wall_s=SCREEN_WALL_S),
     }
+    counts = (phases["solve"]["rounds"], phases["solve"]["nodes"])
+    chk.expect(counts == HEADLINE_COUNTS,
+               f"solve: {counts[0]} rounds and {counts[1]} nodes (the headline at seed 1: "
+               f"{HEADLINE_COUNTS[0]} and {HEADLINE_COUNTS[1]})")
     small = small_agreement(chk, dev)
     small_trim = small_trimmed_agreement(chk, dev, psrc, ptgt, pR, pt)
     t7 = time.perf_counter()
@@ -3025,6 +3130,7 @@ def main() -> int:
                        solve=phases["solve"], trimmed_solve=phases["trimmed solve"],
                        trimmed_screen_solve=phases["trimmed screen solve"],
                        small=small, small_trimmed=small_trim, rotation_bound=rot_bound,
+                       icp_graph=icp_graph,
                        cli=cli_out, phase8=fc_out, phase9=ls_out, phase10=mh_out,
                        failed=chk.failed,
                        total_s=time.perf_counter() - t_start), f, indent=1)

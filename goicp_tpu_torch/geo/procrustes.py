@@ -10,11 +10,21 @@ packages take the same steps.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from goicp_tpu_torch.geo.rotation import quat_to_matrix
 
 _Q0 = (1.0, 0.3, 0.2, 0.1)  # fixed, generically non-orthogonal start
+
+
+@functools.lru_cache(maxsize=None)
+def _q0(dtype, device) -> torch.Tensor:
+    """:data:`_Q0` as a tensor, built once per device and dtype: a CUDA
+    graph that runs :func:`horn_quaternion` reads it and copies no host
+    memory (``icp/solver.py`` captures the ICP iteration)."""
+    return torch.tensor(_Q0, dtype=dtype, device=device)
 
 
 def _horn_K(C):
@@ -42,7 +52,7 @@ def horn_quaternion(C, squarings: int = 5, iters: int = 8):
     for _ in range(squarings):
         Ks = Ks @ Ks
         Ks = Ks / torch.clamp(torch.linalg.matrix_norm(Ks, keepdim=True), min=1e-30)
-    q = torch.tensor(_Q0, dtype=C.dtype, device=C.device).expand(*C.shape[:-2], 4)
+    q = _q0(C.dtype, C.device).expand(*C.shape[:-2], 4)
     for _ in range(iters):
         q = (Ks @ q[..., None])[..., 0]
         q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-30)

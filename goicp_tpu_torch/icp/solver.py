@@ -16,12 +16,18 @@ metric changes only the step and the convergence gate.
 The JAX version is a ``lax.while_loop`` that stops when no pose is active.
 Here the host tests ``any(active)`` before every iteration, which reads one
 flag from the device and so waits for the work queued before it.  Results
-are the same as the device loop's: an inactive pose is never updated.
+are the same as the device loop's: an inactive pose is never updated.  An
+iteration is one function that updates the loop's state in place
+(:func:`_icp_iteration`); on CUDA the point metric on exact correspondences
+captures it once per shape as a CUDA graph and replays it, a few hundred
+small kernels for one launch from the host.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
@@ -55,22 +61,35 @@ def _gather(rows, idx):
     return rows.index_select(0, idx.reshape(-1)).reshape(*idx.shape, 3)
 
 
-def exact_correspondence(targets, normals=None) -> Callable:
-    """Correspondence closure: exact NN against ``targets [Nt,3]`` through K1
-    (its plain version for CPU tensors), whose target layout is packed once
-    here for CUDA tensors.  Returns ``(dst, d2)``, or ``(dst, nrm, d2)``
-    with ``normals [Nt,3]`` (the plane-metric contract)."""
-    from goicp_tpu_torch.nn.fused import nearest_neighbor_mxu, pack_nn_targets
+class ExactCorrespondence:
+    """Correspondence callable: exact NN against ``targets [Nt,3]`` through
+    K1 (its plain version for CPU tensors).  ``packed`` is K1's target
+    layout (:func:`~goicp_tpu_torch.nn.fused.pack_nn_targets`), made once
+    here for CUDA tensors (None on the CPU).  ``corr(pts)`` returns ``(dst,
+    d2)``, or ``(dst, nrm, d2)`` with ``normals [Nt,3]`` (the plane-metric
+    contract).  :func:`run_icp` reads the fields to replay a captured
+    iteration."""
 
-    packed = pack_nn_targets(targets) if targets.is_cuda else None
+    def __init__(self, targets, normals=None):
+        from goicp_tpu_torch.nn.fused import pack_nn_targets
 
-    def corr(pts):
-        d2, idx = nearest_neighbor_mxu(pts, targets, packed=packed)
-        if normals is None:
-            return _gather(targets, idx), d2
-        return _gather(targets, idx), _gather(normals, idx), d2
+        self.targets = targets
+        self.normals = normals
+        self.packed = pack_nn_targets(targets) if targets.is_cuda else None
 
-    return corr
+    def __call__(self, pts):
+        from goicp_tpu_torch.nn.fused import nearest_neighbor_mxu
+
+        d2, idx = nearest_neighbor_mxu(pts, self.targets, packed=self.packed)
+        if self.normals is None:
+            return _gather(self.targets, idx), d2
+        return _gather(self.targets, idx), _gather(self.normals, idx), d2
+
+
+def exact_correspondence(targets, normals=None) -> ExactCorrespondence:
+    """Exact-NN correspondences against ``targets [Nt,3]``
+    (:class:`ExactCorrespondence`)."""
+    return ExactCorrespondence(targets, normals)
 
 
 def grid_correspondence(grid: DistanceGrid, targets, normals=None) -> Callable:
@@ -188,6 +207,195 @@ def _gate(pts, dst, nrm, d2, w, plane: bool):
     return sse, _sse(r * r, w)
 
 
+def _weights(d2, pw, tf: float):
+    """The step's and the SSE's per-point weights: None (all 1), the point
+    weights ``pw``, the trim's 0/1 inliers, or both."""
+    if pw is None:
+        return trim_weights(d2, tf) if tf > 0.0 else None
+    if tf <= 0.0:
+        return pw.expand(d2.shape)
+    return _trim_weighted(d2, pw, tf)
+
+
+@dataclasses.dataclass(frozen=True)
+class _IcpState:
+    """The loop's state, ``[B]`` poses, updated in place by
+    :func:`_icp_iteration`.  The point metric's gate is its SSE, so there
+    ``gate_best`` is ``sse_best`` itself."""
+
+    R_cur: Any       # [B,3,3]
+    t_cur: Any       # [B,3]
+    R_best: Any      # [B,3,3]
+    t_best: Any      # [B,3]
+    sse_best: Any    # [B]
+    gate_best: Any   # [B]
+    iters: Any       # [B] int32
+    active: Any      # [B] bool
+
+    @staticmethod
+    def empty(B: int, dev, plane: bool) -> "_IcpState":
+        f32 = dict(dtype=torch.float32, device=dev)
+        sse = torch.empty((B,), **f32)
+        return _IcpState(
+            torch.empty((B, 3, 3), **f32), torch.empty((B, 3), **f32),
+            torch.empty((B, 3, 3), **f32), torch.empty((B, 3), **f32),
+            sse, torch.empty_like(sse) if plane else sse,
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.bool, device=dev),
+        )
+
+    def fill(self, R0, t0, active0=None):
+        """Start from poses ``R0 [B,3,3]``, ``t0 [B,3]``: nothing kept yet,
+        no iteration run, ``active0`` (default all) active."""
+        for cur, best, x in ((self.R_cur, self.R_best, R0), (self.t_cur, self.t_best, t0)):
+            cur.copy_(x)
+            best.copy_(x)
+        self.sse_best.fill_(float("inf"))
+        self.gate_best.fill_(float("inf"))
+        self.iters.zero_()
+        if active0 is None:
+            self.active.fill_(True)
+        else:
+            self.active.copy_(torch.as_tensor(active0, device=self.active.device)
+                              .to(torch.bool).expand(self.active.shape))
+
+
+def _icp_iteration(st: _IcpState, src, corr: Callable, pw, tf: float, rel_tol: float,
+                   plane: bool, record: Optional[list] = None):
+    """One ICP iteration of every pose, in place on ``st``: score the
+    current poses, keep each pose's best, stop the poses whose gate
+    improved by less than ``rel_tol``, step the others.  A pose that is not
+    active is left as it is.  This is what a CUDA graph of :func:`run_icp`
+    captures; the eager loop runs it too."""
+    pts = RigidTransform(st.R_cur, st.t_cur).apply(src)      # [B,N,3]
+    dst, nrm, d2 = _split_corr(corr(pts))
+    w = _weights(d2, pw, tf)
+    sse_cur, gate_cur = _gate(pts, dst, nrm, d2, w, plane)
+    if record is not None:
+        record.append((st.R_cur.clone(), st.t_cur.clone(), sse_cur, st.active.clone()))
+    take = st.active & (sse_cur < st.sse_best)
+    still = st.active & (
+        st.gate_best - gate_cur >= rel_tol * torch.clamp(gate_cur, min=1e-30)
+    )
+    st.R_best.copy_(torch.where(take[:, None, None], st.R_cur, st.R_best))
+    st.t_best.copy_(torch.where(take[:, None], st.t_cur, st.t_best))
+    if plane:
+        st.gate_best.copy_(torch.where(st.active & (gate_cur < st.gate_best),
+                                       gate_cur, st.gate_best))
+    st.sse_best.copy_(torch.where(take, sse_cur, st.sse_best))
+    R_d, t_d = _step(pts, dst, nrm, w, plane)
+    nxt = RigidTransform(R_d, t_d).compose(RigidTransform(st.R_cur, st.t_cur))
+    st.R_cur.copy_(torch.where(still[:, None, None], nxt.R, st.R_cur))
+    st.t_cur.copy_(torch.where(still[:, None], nxt.t, st.t_cur))
+    st.iters.add_(st.active.to(torch.int32))
+    st.active.copy_(still)
+
+
+def _run_eager(src, corr, R0, t0, params: IcpParams, pw=None, active0=None,
+               record: Optional[list] = None):
+    """:func:`run_icp`'s loop, one :func:`_icp_iteration` at a time: the
+    host reads ``any(active)`` before each.  Returns ``(R_best, t_best,
+    sse_best, iters)``."""
+    plane = params.metric == "plane"
+    st = _IcpState.empty(t0.shape[0], t0.device, plane)
+    st.fill(R0, t0, active0)
+    it = 0
+    while it < params.max_iter and bool(st.active.any()):
+        _icp_iteration(st, src, corr, pw, params.trim_fraction, params.rel_tol, plane, record)
+        it += 1
+    return st.R_best, st.t_best, st.sse_best, st.iters
+
+
+def _graphable(src, corr, R0, t0, params: IcpParams, pw, record) -> bool:
+    """Whether :func:`run_icp` replays a captured iteration: CUDA f32
+    tensors on one device, one source for every pose, exact (K1)
+    correspondences, the point metric, no point weights, no record.  The
+    plane step's solve synchronises, and the other correspondences and
+    weights take the eager loop."""
+    tensors = (src, R0, t0, corr.targets, corr.packed) \
+        if isinstance(corr, ExactCorrespondence) else ()
+    return (bool(tensors) and params.metric == "point" and pw is None and record is None
+            and src.dim() == 2
+            and all(x is not None and x.is_cuda and x.dtype == torch.float32
+                    and x.device == src.device for x in tensors))
+
+
+@dataclasses.dataclass(frozen=True)
+class _IcpGraph:
+    """A captured :func:`_icp_iteration` and the buffers it reads and
+    writes; ``launches``/``shapes``: the kernel launches of one replay, by
+    counter and by K1 shape (:mod:`goicp_tpu_torch.nn.fused`)."""
+
+    graph: Any
+    src: Any
+    corr: ExactCorrespondence
+    state: _IcpState
+    launches: collections.Counter
+    shapes: collections.Counter
+
+
+def _launch_counts():
+    from goicp_tpu_torch.nn import fused
+
+    return collections.Counter(fused.launches), collections.Counter(fused.nn_launch_shapes)
+
+
+@functools.lru_cache(maxsize=32)
+def _icp_graph(index: int, B: int, N: int, Nt: int, tf: float, rel_tol: float) -> _IcpGraph:
+    """A CUDA graph of one point-metric iteration of ``B`` poses of ``N``
+    points against ``Nt`` targets on device ``index``.  It is warmed up on a
+    side stream and captured on buffers of its own, whose values it leaves
+    spent; the launch counts of both are taken back out."""
+    from goicp_tpu_torch.nn import fused
+
+    with torch.cuda.device(index):
+        dev = torch.device("cuda", index)
+        src = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+        corr = ExactCorrespondence(torch.zeros((Nt, 3), dtype=torch.float32, device=dev))
+        st = _IcpState.empty(B, dev, plane=False)
+        st.fill(torch.eye(3, device=dev).expand(B, 3, 3), torch.zeros((B, 3), device=dev))
+        counts = _launch_counts()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _icp_iteration(st, src, corr, None, tf, rel_tol, plane=False)   # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        warm = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            _icp_iteration(st, src, corr, None, tf, rel_tol, plane=False)
+        done = _launch_counts()
+        fused.launches.update(counts[0])
+        fused.nn_launch_shapes.clear()
+        fused.nn_launch_shapes.update(counts[1])
+        return _IcpGraph(graph, src, corr, st, done[0] - warm[0], done[1] - warm[1])
+
+
+def _run_graphed(src, corr: ExactCorrespondence, R0, t0, params: IcpParams,
+                 active0=None):
+    """:func:`_run_eager` of the point metric, each iteration one replay of
+    a CUDA graph of :func:`_icp_iteration` (:func:`_icp_graph`): the same
+    kernels in the same order, so the same bits.  The results are copied
+    out of the graph's buffers, which the next call overwrites."""
+    from goicp_tpu_torch.nn import fused
+
+    g = _icp_graph(src.device.index, t0.shape[0], src.shape[0], corr.targets.shape[0],
+                   float(params.trim_fraction), float(params.rel_tol))
+    g.src.copy_(src)
+    g.corr.targets.copy_(corr.targets)
+    g.corr.packed.copy_(corr.packed)
+    g.state.fill(R0, t0, active0)
+    it = 0
+    while it < params.max_iter and bool(g.state.active.any()):
+        g.graph.replay()
+        for k, n in g.launches.items():
+            fused.launches[k] += n
+        fused.nn_launch_shapes.update(g.shapes)
+        it += 1
+    st = g.state
+    return st.R_best.clone(), st.t_best.clone(), st.sse_best.clone(), st.iters.clone()
+
+
 def run_icp(
     src,
     corr: Callable,
@@ -217,71 +425,33 @@ def run_icp(
     ``record``: a list that gets one ``(R [B,3,3], t [B,3], sse [B], active
     [B])`` row per iteration run, the poses visited and their point SSE
     (:func:`run_icp_trace` reads it).
+
+    On CUDA, a point-metric batch on :class:`ExactCorrespondence` without
+    point weights or a record replays each iteration as one CUDA graph
+    (:func:`_run_graphed`); every other call runs the same iteration
+    eagerly.  Both give the same results.
     """
     _check_metric(params)
-    plane = params.metric == "plane"
     batched = init.t.dim() > 1
     R0 = init.R if batched else init.R[None]
     t0 = init.t if batched else init.t[None]
     B = t0.shape[0]
     dev = t0.device
-
-    tf = params.trim_fraction
     pw = None if point_weights is None else torch.as_tensor(
         point_weights, dtype=torch.float32, device=dev)
 
-    def _unbatch(R, t, sse, iters):
-        if not batched:
-            R, t, sse, iters = R[0], t[0], sse[0], iters[0]
-        return IcpResult(RigidTransform(R, t), sse, iters)
-
-    def _weights(d2):
-        if pw is None:
-            return trim_weights(d2, tf) if tf > 0.0 else None
-        if tf <= 0.0:
-            return pw.expand(d2.shape)
-        return _trim_weighted(d2, pw, tf)
-
     if params.max_iter == 0:
         _, _, d2 = _split_corr(corr(RigidTransform(R0, t0).apply(src)))
-        return _unbatch(R0, t0, _sse(d2, _weights(d2)),
-                        torch.zeros((B,), dtype=torch.int32, device=dev))
-
-    if active0 is None:
-        active = torch.ones((B,), dtype=torch.bool, device=dev)
+        R, t = R0, t0
+        sse = _sse(d2, _weights(d2, pw, params.trim_fraction))
+        iters = torch.zeros((B,), dtype=torch.int32, device=dev)
     else:
-        active = torch.as_tensor(active0, device=dev).to(torch.bool).expand(B)
-    R_best, t_best = R0, t0
-    R_cur, t_cur = R0, t0
-    sse_best = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    gate_best = sse_best
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    it = 0
-    while it < params.max_iter and bool(active.any()):
-        pts = RigidTransform(R_cur, t_cur).apply(src)        # [B,N,3]
-        dst, nrm, d2 = _split_corr(corr(pts))
-        w = _weights(d2)
-        sse_cur, gate_cur = _gate(pts, dst, nrm, d2, w, plane)
-        if record is not None:
-            record.append((R_cur, t_cur, sse_cur, active))
-        take = active & (sse_cur < sse_best)
-        R_best = torch.where(take[:, None, None], R_cur, R_best)
-        t_best = torch.where(take[:, None], t_cur, t_best)
-        still = active & (
-            gate_best - gate_cur >= params.rel_tol * torch.clamp(gate_cur, min=1e-30)
-        )
-        sse_best = torch.where(take, sse_cur, sse_best)
-        # the point metric's gate is its sse, whose best ``take`` just kept
-        gate_best = (torch.where(active & (gate_cur < gate_best), gate_cur, gate_best)
-                     if plane else sse_best)
-        R_d, t_d = _step(pts, dst, nrm, w, plane)
-        nxt = RigidTransform(R_d, t_d).compose(RigidTransform(R_cur, t_cur))
-        R_cur = torch.where(still[:, None, None], nxt.R, R_cur)
-        t_cur = torch.where(still[:, None], nxt.t, t_cur)
-        iters = iters + active.to(torch.int32)
-        active = still
-        it += 1
-    return _unbatch(R_best, t_best, sse_best, iters)
+        R, t, sse, iters = (_run_graphed(src, corr, R0, t0, params, active0)
+                            if _graphable(src, corr, R0, t0, params, pw, record)
+                            else _run_eager(src, corr, R0, t0, params, pw, active0, record))
+    if not batched:
+        R, t, sse, iters = R[0], t[0], sse[0], iters[0]
+    return IcpResult(RigidTransform(R, t), sse, iters)
 
 
 def run_icp_trace(

@@ -904,3 +904,59 @@ def test_forms_empty_batches(cuda):
     assert fused.min_d2_groups(srcT, wm, torch.zeros((0, 48), device=cuda),
                                variant="exp").shape == (0, 384)
     assert sum(fused.launches.values()) == 0
+
+
+# the ICP loop's CUDA graph (icp/solver.py:_run_graphed): each iteration
+# replays one captured _icp_iteration, so R, t, sse and iters are bit-equal
+# to the eager loop on the same CUDA tensors, with one K1 launch counted per
+# replay and none for the capture; at the refine's shape (8 poses x 1,518
+# against 1,797), trimmed and not, with active0 partly False, and at the
+# multistart's (64 poses x 512 against 512, and x 1,518 against 1,797)
+ICP_GRAPH_CASES = [
+    (8, 1518, 1797, 0.0, False, 32), (8, 1518, 1797, 0.25, False, 32),
+    (8, 1518, 1797, 0.0, True, 32), (8, 1518, 1797, 0.25, True, 32),
+    (64, 512, 512, 0.0, False, 100), (64, 1518, 1797, 0.0, False, 100),
+    (64, 1518, 1797, 0.25, True, 100),
+]
+
+
+@pytest.mark.parametrize("B,n,nt,trim,gated,max_iter", ICP_GRAPH_CASES)
+def test_icp_graph_equals_eager_loop(cuda, B, n, nt, trim, gated, max_iter):
+    from goicp_tpu_torch.core.types import RigidTransform
+    from goicp_tpu_torch.geo.rotation import random_rotations
+    from goicp_tpu_torch.icp import IcpParams, exact_correspondence, run_icp
+    from goicp_tpu_torch.icp import solver as icp_solver
+
+    rng = np.random.default_rng(51)
+    src = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    R = random_rotations(1, rng)[0]
+    tgt = rng.uniform(-0.55, 0.55, (nt, 3)).astype(np.float32)
+    m = min(n, nt)
+    tgt[:m] = src[:m] @ R.T + 0.03 + rng.normal(0, 0.004, (m, 3)).astype(np.float32)
+    R0 = random_rotations(B, rng)
+    R0[: B // 4] = R
+    t0 = rng.normal(0, 0.04, (B, 3)).astype(np.float32)
+    S, T = torch.as_tensor(src, device=cuda), torch.as_tensor(tgt, device=cuda)
+    Rt, tt = torch.as_tensor(R0, device=cuda), torch.as_tensor(t0, device=cuda)
+    a0 = torch.as_tensor(np.arange(B) % 3 != 1, device=cuda) if gated else None
+    params = IcpParams(max_iter=max_iter, rel_tol=1e-4, trim_fraction=trim)
+    corr = exact_correspondence(T)
+    assert icp_solver._graphable(S, corr, Rt, tt, params, None, None)
+
+    fused.reset_launch_counts()
+    eager = [x.cpu() for x in icp_solver._run_eager(S, corr, Rt, tt, params, active0=a0)]
+    eager_k1 = fused.launches["nearest_neighbor_mxu"]
+    assert eager_k1 > 1 and dict(fused.nn_launch_shapes) == {(B * n, nt): eager_k1}
+
+    for call in range(2):
+        misses = icp_solver._icp_graph.cache_info().misses
+        fused.reset_launch_counts()
+        res = run_icp(S, corr, RigidTransform(Rt, tt), params, active0=a0)
+        torch.cuda.synchronize()
+        got = [x.cpu() for x in (res.transform.R, res.transform.t, res.sse, res.iters)]
+        for g, e in zip(got, eager):
+            assert torch.equal(g, e)
+        assert sum(fused.launches.values()) == fused.launches["nearest_neighbor_mxu"] == eager_k1
+        assert dict(fused.nn_launch_shapes) == {(B * n, nt): eager_k1}
+        if call:            # the second call replays the graph the first one captured
+            assert icp_solver._icp_graph.cache_info().misses == misses
